@@ -1,0 +1,295 @@
+"""Public compression API (bsc_init / compress / store / block_info /
+decompress) for the configurations this port covers.
+
+This slice covers ``BLOCKSORTER_BWT_WIDEAUX`` + ``CODER_QLFC_WIDE`` (CLI
+``-m9 -e4``).  With ``FEATURE_CUDA`` (``-G``) a block of 1 MiB or more
+that gets 1024 lanes takes the fused device route; otherwise blocks take
+the per-stage route: host wide-aux BWT, then K1/K2 on the device for
+1024-lane blocks or the native codec for other lane counts.  These are
+the JAX package's routing conditions (its api.py:164-246 and :309-327),
+so both packages write the same archive for the same input.  Other
+sorters and coders raise ``BscError(NOT_SUPPORTED)``.
+
+``init(features, device=None)`` chooses the device: ``None`` means
+``cuda``, which must be present; ``device="cpu"`` runs every kernel's
+plain PyTorch version instead.
+"""
+
+from __future__ import annotations
+
+import struct
+
+import numpy as np
+import torch
+
+from . import constants as C
+from . import engine
+from .format.header import (
+    make_stored_block,
+    pack_block_header,
+    pack_mode,
+    parse_block_header,
+)
+from .ops import wide
+from .utils.adler32 import adler32
+
+
+class BscError(Exception):
+    """An error code of the reference ABI, raised."""
+
+    def __init__(self, code: int, message: str = ""):
+        super().__init__(message or f"libbsc-tpu error {code}")
+        self.code = code
+
+
+_ERROR_NAMES = {
+    C.BAD_PARAMETER: "bad parameter",
+    C.NOT_ENOUGH_MEMORY: "not enough memory",
+    C.NOT_COMPRESSIBLE: "not compressible",
+    C.NOT_SUPPORTED: "not supported",
+    C.UNEXPECTED_EOB: "unexpected end of block",
+    C.DATA_CORRUPT: "data corrupt",
+}
+
+_state: dict = {"features": None, "device": None}
+
+
+def _raise(code: int):
+    raise BscError(code, _ERROR_NAMES.get(code, str(code)))
+
+
+def init(features: int = C.DEFAULT_FEATURES, device=None) -> int:
+    """Initialize the library (bsc_init) on ``device`` (default ``cuda``).
+    Raises when CUDA is absent and the caller did not ask for the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise BscError(C.GPU_NOT_SUPPORTED,
+                       "CUDA is not available; pass device='cpu' to run "
+                       "the kernels' plain versions on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise BscError(C.BAD_PARAMETER, f"unsupported device {dev}")
+    from . import native
+
+    native.load()
+    _state["features"] = features
+    _state["device"] = dev
+    return C.NO_ERROR
+
+
+def _ensure_init():
+    if _state["device"] is None:
+        init()
+
+
+def _device_route(features: int):
+    """The device for the FEATURE_CUDA route, or None for host stages."""
+    return _state["device"] if features & C.FEATURE_CUDA else None
+
+
+def store(data: bytes) -> bytes:
+    """bsc_store: wrap data in a stored block."""
+    return make_stored_block(data)
+
+
+def block_info(block_header: bytes):
+    """bsc_block_info: validate a 28-byte header.  Returns (block_size,
+    data_size) or raises BscError."""
+    h = parse_block_header(block_header)
+    if isinstance(h, int):
+        _raise(h)
+    return h.block_size, h.data_size
+
+
+def _check_supported(block_sorter: int, coder: int) -> None:
+    if block_sorter != C.BLOCKSORTER_BWT_WIDEAUX or coder != C.CODER_QLFC_WIDE:
+        raise BscError(C.NOT_SUPPORTED,
+                       "this port covers BLOCKSORTER_BWT_WIDEAUX + "
+                       "CODER_QLFC_WIDE only")
+
+
+def compress(data: bytes, lzp_hash_size: int = C.DEFAULT_LZPHASHSIZE,
+             lzp_min_len: int = C.DEFAULT_LZPMINLEN,
+             block_sorter: int = C.DEFAULT_BLOCKSORTER,
+             coder: int = C.DEFAULT_CODER,
+             features: int | None = None) -> bytes:
+    """bsc_compress: one block (header + payload); a stored block when the
+    data is incompressible."""
+    _ensure_init()
+    mode = pack_mode(block_sorter, coder, lzp_hash_size, lzp_min_len)
+    if mode < 0:
+        raise BscError(C.BAD_PARAMETER, "invalid mode configuration")
+    _check_supported(block_sorter, coder)
+    n = len(data)
+    if n > C.MAX_COMPRESS_SIZE:
+        raise BscError(C.BAD_PARAMETER, "input too large")
+    if n <= C.HEADER_SIZE:
+        return store(data)
+    features = _state["features"] if features is None else features
+    device = _device_route(features)
+    adler_data = adler32(data)
+    buf = np.frombuffer(data, dtype=np.uint8)
+
+    lz = None
+    if mode != (mode & 0xFF):
+        lz = engine.lzp_compress(buf, lzp_hash_size, lzp_min_len,
+                                 features)
+        if lz is None:
+            mode &= 0xFF
+    if lz is None:
+        lz = buf.copy()
+    if len(lz) <= C.HEADER_SIZE:
+        block_sorter = C.BLOCKSORTER_BWT
+        mode = (mode & ~0x1F) | C.BLOCKSORTER_BWT
+
+    lanes = wide.pick_lanes_policy(len(lz))
+    payload = None
+    wideaux_r = None
+    if (block_sorter == C.BLOCKSORTER_BWT_WIDEAUX and device is not None
+            and lanes == wide.DEFAULT_LANES):
+        fused = engine.compress_block_device(lz, device)
+        if fused is not None:
+            index, num_indexes, indexes, wideaux_r, payload = fused
+
+    if payload is None:  # per-stage route
+        if block_sorter == C.BLOCKSORTER_BWT:
+            index, num_indexes, indexes = engine.bwt_encode(lz, features)
+        else:
+            index, num_indexes, indexes, wideaux_r = \
+                engine.bwt_encode_wideaux(lz)
+        if index < 0:
+            _raise(index)
+        if n < 64 * 1024 and wideaux_r is None:
+            num_indexes = 0
+        if lanes == wide.DEFAULT_LANES and device is not None:
+            from .ops import wide_kernels
+
+            payload = wide_kernels.device_encode(lz.tobytes(), device)
+        if payload is None:
+            payload = wide.wide_encode(lz.tobytes(), n_lanes=lanes)
+
+    tail_len = (5 if wideaux_r is not None else 1) + 4 * num_indexes
+    if payload is None or len(payload) + tail_len >= n:
+        return store(data)
+    if wideaux_r is not None:
+        # wide-aux tail: [i32 aux x K][u32 K][u8 255]
+        tail = np.asarray(indexes[:num_indexes], dtype="<i4").tobytes()
+        tail += struct.pack("<I", num_indexes) + b"\xff"
+    else:
+        tail = b""
+        if num_indexes > 0:
+            tail = np.asarray(indexes[:num_indexes], dtype="<i4").tobytes()
+        tail += bytes([num_indexes])
+    payload = bytes(payload) + tail
+    header = pack_block_header(len(payload) + C.HEADER_SIZE, n, mode, index,
+                               adler_data, adler32(payload))
+    return header + payload
+
+
+def _decode_to_sorter(block: bytes, expected_size: int | None):
+    """Header and Adler checks, then the wide decode; stops before the
+    sorter.  Returns the stored bytes or the state for the sorter."""
+    h = parse_block_header(block)
+    if isinstance(h, int):
+        _raise(h)
+    if len(block) < h.block_size:
+        _raise(C.UNEXPECTED_EOB)
+    if expected_size is not None and expected_size < h.data_size:
+        _raise(C.UNEXPECTED_EOB)
+    payload = bytes(block[C.HEADER_SIZE: h.block_size])
+    if h.adler32_payload != adler32(payload):
+        _raise(C.DATA_CORRUPT)
+    if h.mode == 0:
+        return payload
+
+    coder = (h.mode >> 5) & 0x7
+    block_sorter = h.mode & 0x1F
+    # BLOCKSORTER_BWT appears only where the LZP output was at most a
+    # header long (see compress)
+    if coder != C.CODER_QLFC_WIDE or block_sorter not in (
+            C.BLOCKSORTER_BWT, C.BLOCKSORTER_BWT_WIDEAUX):
+        raise BscError(C.NOT_SUPPORTED, "this port decodes "
+                       "BLOCKSORTER_BWT_WIDEAUX + CODER_QLFC_WIDE only")
+    device = _device_route(_state["features"])
+
+    if block_sorter == C.BLOCKSORTER_BWT_WIDEAUX:
+        if len(payload) < 5 or payload[-1] != 0xFF:
+            _raise(C.DATA_CORRUPT)
+        (num_indexes,) = struct.unpack_from("<I", payload, len(payload) - 5)
+        if len(payload) < 5 + 4 * num_indexes:
+            _raise(C.DATA_CORRUPT)
+        indexes = np.frombuffer(payload[-5 - 4 * num_indexes: -5],
+                                dtype="<i4").astype(np.int32)
+        payload = payload[: -5 - 4 * num_indexes]
+    else:
+        num_indexes = payload[-1]
+        indexes = None
+        if num_indexes > 0:
+            indexes = np.frombuffer(payload[-1 - 4 * num_indexes: -1],
+                                    dtype="<i4").astype(np.int32)
+
+    lz = None
+    sorted_done = False
+    if device is not None:
+        from .ops import wide_kernels
+
+        if wide_kernels.needs_v2_decode(payload):
+            raise BscError(C.NOT_SUPPORTED, "v2 wide payloads (no rANS "
+                           "flag) need the K4 decode kernel, not ported yet")
+    if block_sorter == C.BLOCKSORTER_BWT_WIDEAUX and device is not None:
+        (tsize,) = struct.unpack_from("<I", payload, 0)
+        out = engine.decompress_block_device(
+            payload, h.index, indexes, engine.wideaux_rate(int(tsize)),
+            int(tsize), device)
+        if out is not None:
+            lz, sorted_done = out, True
+    if lz is None and device is not None:
+        out = wide_kernels.device_decode(payload, device)
+        if out is not None:
+            lz = np.frombuffer(out, dtype=np.uint8).copy()
+    if lz is None:
+        lz = np.frombuffer(wide.wide_decode(payload), dtype=np.uint8).copy()
+    return {"h": h, "lz": lz, "sorter": block_sorter, "sorted": sorted_done,
+            "num_indexes": num_indexes, "indexes": indexes,
+            "lzp_hash_size": (h.mode >> 16) & 0xFF,
+            "lzp_min_len": (h.mode >> 8) & 0xFF, "device": device}
+
+
+def _run_sorter(st) -> None:
+    if st["sorted"]:
+        return
+    h, lz = st["h"], st["lz"]
+    if st["sorter"] == C.BLOCKSORTER_BWT:
+        rc = engine.bwt_decode(lz, h.index, st["num_indexes"], st["indexes"],
+                               _state["features"])
+    else:
+        rc = engine.bwt_decode_wideaux(
+            lz, h.index, st["num_indexes"], st["indexes"],
+            engine.wideaux_rate(len(lz)), st["device"])
+    if rc < 0:
+        _raise(rc)
+
+
+def _finish_decode(st) -> bytes:
+    h, lz = st["h"], st["lz"]
+    if st["lzp_hash_size"] or st["lzp_min_len"]:
+        out = engine.lzp_decompress(lz, st["lzp_hash_size"],
+                                    st["lzp_min_len"], _state["features"],
+                                    capacity=h.data_size + 4096)
+        if isinstance(out, int):
+            _raise(out)
+    else:
+        out = lz
+    result = out.tobytes()
+    if len(result) != h.data_size or h.adler32_data != adler32(result):
+        _raise(C.DATA_CORRUPT)
+    return result
+
+
+def decompress(block: bytes, expected_size: int | None = None) -> bytes:
+    """bsc_decompress: one block (header + payload)."""
+    _ensure_init()
+    st = _decode_to_sorter(block, expected_size)
+    if isinstance(st, bytes):
+        return st
+    _run_sorter(st)
+    return _finish_decode(st)

@@ -1,0 +1,162 @@
+"""Stage functions of the main path: host LZP and wide-aux BWT on the
+native runtime, and the fused device stages.
+
+The fused encode (:func:`compress_block_device`) copies the LZP'd block to
+the device once and runs the wide-aux BWT, the lane balancer, the bit
+schedule and kernels K1 and K2 there; only the payload comes back.  The
+fused decode runs K3 and the wide-aux inverse BWT on the device; only the
+final bytes come back.  Neither catches errors: a kernel that fails to
+build or launch raises.  They return None only where the block's data
+sends it to the per-stage route, under the JAX package's conditions.
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import torch
+
+from . import native
+
+# Blocks below this size take the per-stage route (the JAX package's
+# device minimum, kept so both packages route blocks the same way).
+_DEVICE_MIN_BLOCK = 1 << 20
+
+
+def num_threads(features: int) -> int:
+    from . import constants as C
+
+    return (os.cpu_count() or 1) if features & C.FEATURE_MULTITHREADING \
+        else 1
+
+
+def _as_c(arr: np.ndarray) -> np.ndarray:
+    return np.ascontiguousarray(arr, dtype=np.uint8)
+
+
+def lzp_compress(data: np.ndarray, hash_size: int, min_len: int,
+                 features: int):
+    """The LZP stream as ndarray, or None if not compressible."""
+    lib = native.load()
+    inp = _as_c(data)
+    out = np.empty(len(inp) + 1024, dtype=np.uint8)
+    rc = lib.tbsc_lzp_compress(native.u8p(inp), native.u8p(out), len(inp),
+                               hash_size, min_len, num_threads(features))
+    return None if rc < 0 else out[:rc]
+
+
+def lzp_decompress(data: np.ndarray, hash_size: int, min_len: int,
+                   features: int, capacity: int):
+    """The decoded bytes as ndarray, or a negative error code."""
+    lib = native.load()
+    inp = _as_c(data)
+    out = np.empty(int(capacity), dtype=np.uint8)
+    rc = lib.tbsc_lzp_decompress(native.u8p(inp), native.u8p(out), len(inp),
+                                 hash_size, min_len, num_threads(features))
+    return rc if rc < 0 else out[:rc]
+
+
+def bwt_encode(data: np.ndarray, features: int):
+    """Host BWT in place (the sorter of blocks whose LZP output is at most
+    a header long).  Returns (index, num_indexes, indexes)."""
+    lib = native.load()
+    ni = np.zeros(1, dtype=np.uint8)
+    idx = np.zeros(256, dtype=np.int32)
+    rc = lib.tbsc_bwt_encode(native.u8p(data), len(data), native.u8p(ni),
+                             native.i32p(idx), num_threads(features))
+    if rc < 0:
+        return rc, 0, None
+    return rc, int(ni[0]), idx
+
+
+def bwt_decode(data: np.ndarray, index: int, num_indexes: int, indexes,
+               features: int) -> int:
+    lib = native.load()
+    idx = (np.ascontiguousarray(indexes, dtype=np.int32)
+           if indexes is not None else np.zeros(1, dtype=np.int32))
+    return lib.tbsc_bwt_decode(native.u8p(data), len(data), index,
+                               num_indexes, native.i32p(idx),
+                               num_threads(features))
+
+
+def wideaux_rate(n: int) -> int:
+    """Aux sampling rate of the wide-aux profile: the power of two giving
+    ~4096+ inverse chains (min 256)."""
+    r = 256
+    while r * 2 * 8192 <= n:
+        r *= 2
+    return r
+
+
+def bwt_encode_wideaux(data: np.ndarray):
+    """Host wide-aux BWT in place.  Returns (index, num_indexes, indexes,
+    r)."""
+    n = len(data)
+    r = wideaux_rate(n)
+    k = (n - 1) // r
+    lib = native.load()
+    indexes = np.zeros(max(k, 1), dtype=np.int32)
+    rc = lib.tbsc_bwt_encode_rate(native.u8p(data), n, r,
+                                  native.i32p(indexes))
+    return rc, k, indexes[:k], r
+
+
+def bwt_decode_wideaux(data: np.ndarray, index: int, num_indexes: int,
+                       indexes, r: int, device) -> int:
+    """Inverse wide-aux BWT in place: the device chase for blocks of
+    1 MiB or more when ``device`` is given, the native wavefront
+    otherwise."""
+    n = len(data)
+    if device is not None and n >= _DEVICE_MIN_BLOCK:
+        from .ops import bwt as opsbwt
+
+        out = opsbwt.unbwt_wideaux(
+            torch.from_numpy(data).to(device), index,
+            torch.from_numpy(np.ascontiguousarray(indexes, dtype=np.int32))
+            .to(device), r, n)
+        data[:] = out.cpu().numpy()
+        return 0
+    lib = native.load()
+    idx = np.ascontiguousarray(np.asarray(indexes, dtype=np.int32))
+    return lib.tbsc_bwt_decode_rate(native.u8p(data), n, index, r,
+                                    num_indexes, native.i32p(idx))
+
+
+def compress_block_device(lz: np.ndarray, device):
+    """Fused device encode of BLOCKSORTER_BWT_WIDEAUX + CODER_QLFC_WIDE.
+    Returns (index, num_indexes, indexes, r, payload), or None when the
+    block takes the per-stage route (under 1 MiB, a schedule the device
+    walker does not take, or a payload that is not smaller)."""
+    n = len(lz)
+    if n < _DEVICE_MIN_BLOCK:
+        return None
+    from .ops import bwt as opsbwt
+    from .ops import wide_kernels
+
+    r = wideaux_rate(n)
+    U, primary, aux = opsbwt.bwt_encode_wideaux_device(
+        torch.from_numpy(_as_c(lz)).to(device), r)
+    payload = wide_kernels.device_encode_resident(U)
+    if payload is None:
+        return None
+    aux_np = aux.cpu().numpy().astype(np.int32)
+    return int(primary), int(aux_np.shape[0]), aux_np, r, payload
+
+
+def decompress_block_device(payload: bytes, index: int, indexes, r: int,
+                            n: int, device):
+    """Fused device decode: K3's block stays on the device and feeds the
+    wide-aux chase.  Returns the (pre-LZP) bytes as ndarray, or None when
+    the block takes the per-stage route."""
+    if n < _DEVICE_MIN_BLOCK:
+        return None
+    from .ops import bwt as opsbwt
+    from .ops import wide_kernels
+
+    U = wide_kernels.device_decode_resident(payload, device)
+    if U is None:
+        return None
+    aux = torch.from_numpy(np.ascontiguousarray(indexes, dtype=np.int32))
+    out = opsbwt.unbwt_wideaux(U, index, aux.to(device), r, n)
+    return out.cpu().numpy()

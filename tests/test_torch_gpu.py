@@ -1,0 +1,133 @@
+"""The CUDA kernels K1-K3 against their plain PyTorch versions on the card,
+at small size, and the fused -m9 -e4 -G route through them.
+
+These tests need a CUDA device and skip without one.  tests/conftest.py
+imports JAX, which a GPU machine need not have, so run them there with
+
+    python -m pytest --noconftest -m gpu tests/test_torch_gpu.py -q
+
+All comparisons are exact: the codec is lossless.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import libbsc_tpu_torch as P
+from libbsc_tpu_torch import constants as C
+from libbsc_tpu_torch import native
+from libbsc_tpu_torch.ops import wide as W
+from libbsc_tpu_torch.ops import wide_kernels as WK
+from libbsc_tpu_torch.ops import wide_schedule as WS
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture(scope="module")
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda", 0)
+
+
+def _runs(n: int, seed: int) -> bytes:
+    g = np.random.default_rng(seed)
+    out = bytearray()
+    while len(out) < n:
+        out += bytes([g.integers(0, 4)]) * int(g.integers(1, 10))
+    return bytes(out[:n])
+
+
+def _text(n: int, seed: int) -> bytes:
+    g = np.random.default_rng(seed)
+    words = [b"the ", b"quick ", b"brown ", b"fox ", b"jumps ", b"over ",
+             b"a lazy dog. ", b"compression ", b"transform ", b"lanes "]
+    out = bytearray()
+    while len(out) < n:
+        out += words[g.integers(0, len(words))]
+    return bytes(out[:n])
+
+
+def _equal_split_planes(data: bytes):
+    """Planes of the native walker over the equal-split lane table
+    (dead lanes at the end when the block is not a multiple of 1024)."""
+    n = len(data)
+    buf = np.frombuffer(data, np.uint8).copy()
+    pk, max_bits = WK.host_schedule_packed(buf, n, None, -(-n // WK.LANES))
+    assert max_bits > 0
+    IT = WK._it_bucket(max(max_bits, WK.TI))
+    pk = np.pad(pk, ((0, 0), (0, max(0, IT // 4 - pk.shape[1]))))
+    return np.ascontiguousarray(pk[:, : IT // 4].T), max_bits
+
+
+@pytest.fixture(scope="module", params=["balanced", "dead_lanes"])
+def case(request):
+    if request.param == "balanced":
+        data = _runs(1024 * 40, 212)
+        planes, sizes, max_bits, _ = WK._host_prep(data)
+    else:  # 24 dead lanes: the equal split gives 1000 live lanes
+        data = _runs(1024 * 36 + 123, 271)
+        planes, max_bits = _equal_split_planes(data)
+        sizes = None
+    return data, planes, sizes, max_bits
+
+
+def test_model_kernel_equals_plain(cuda, case):
+    _, planes, _, max_bits = case
+    planes_d = torch.from_numpy(planes).to(cuda)
+    before = WK.LAUNCHES["wide_model"]
+    ours = WK.model_probs(planes_d, max_bits)
+    torch.cuda.synchronize()
+    assert WK.LAUNCHES["wide_model"] == before + 1
+    plain = WK.model_probs_plain(planes_d, max_bits)
+    assert torch.equal(ours, plain)
+
+
+def test_rans_kernel_equals_plain_and_native(cuda, case):
+    data, planes, sizes, max_bits = case
+    planes_d = torch.from_numpy(planes).to(cuda)
+    probs = WK.model_probs_plain(planes_d, max_bits)
+    units, counts, fx = WK.rans_encode(planes_d, probs, max_bits)
+    torch.cuda.synchronize()
+    p_units, p_counts, p_fx = WK.rans_encode_plain(planes_d, probs, max_bits,
+                                                   units.shape[1])
+    assert torch.equal(counts, p_counts) and torch.equal(fx, p_fx)
+    cap = units.shape[1]
+    for g, c in enumerate(counts.tolist()):
+        assert torch.equal(units[g, cap - c:], p_units[g, cap - c:])
+    payload = WK._assemble_rans(len(data), units, counts, fx, sizes,
+                                max_bits)
+    assert payload == W.wide_encode(data, n_lanes=WK.LANES,
+                                    balanced=sizes is not None, rans=True)
+
+
+def test_decode_kernel_equals_plain_and_input(cuda, case):
+    data, _, sizes, _ = case
+    payload = W.wide_encode(data, n_lanes=WK.LANES,
+                            balanced=sizes is not None, rans=True)
+    args = WK._dec_args(WK._dec_parse(payload), cuda)
+    ours = WK.decode_lanes(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(ours, WK.decode_lanes_plain(*args))
+    assert ours.cpu().numpy().tobytes() == data
+
+
+def test_fused_route_goes_through_the_kernels(cuda, monkeypatch):
+    monkeypatch.setenv("TBSC_WIDE_LANES", "1024")
+    data = _text(3 << 19, 1536)
+    feats = C.FEATURE_FASTMODE | C.FEATURE_CUDA
+    P.init(feats, device=cuda)
+    WK.reset_launches()
+    blob = P.compress(data, block_sorter=C.BLOCKSORTER_BWT_WIDEAUX,
+                      coder=C.CODER_QLFC_WIDE)
+    assert P.decompress(blob) == data
+    assert min(WK.LAUNCHES.values()) == 1
+    # the resident payload is the native codec's with the device table
+    native.load()
+    U = torch.from_numpy(np.frombuffer(data[:1 << 20], np.uint8).copy())
+    U = U.to(cuda)
+    sizes = WS.device_balanced_sizes(U, WK.LANES).cpu().numpy()
+    assert WK.device_encode_resident(U) == W.wide_encode(
+        U.cpu().numpy().tobytes(), n_lanes=WK.LANES, sizes=sizes, rans=True)
+    P.init(C.FEATURE_FASTMODE, device=cuda)  # host stages only
+    assert P.decompress(blob) == data
