@@ -1,42 +1,53 @@
 #!/usr/bin/env python3
 """Quickest proof that the PyTorch/CUDA port runs on the GPU.
 
-    python3 chip_smoke.py            # one CUDA card, about seven minutes
+    python3 chip_smoke.py            # one CUDA card, about four minutes
 
-Phases, one line each:
+Phases, one line or more each:
   1. build: the CUDA kernels (one nvcc per csrc/*.cu, all started together)
      and the native host runtime, with the card's name and power limit;
-  2. kernels against their plain PyTorch versions, on the inputs the main
-     path gives them: one 25 MiB block (bsc's default -b25) of the corpus
-     through the port's own stages (native LZP, device wide-aux BWT, device
-     lane table and bit schedule).  K1's probability plane, K2's payload
-     (also against the native codec with the same lane table) and K3's
-     decoded block must be exactly equal (tolerance 0: a lossless codec);
-     each kernel is timed with CUDA events, its plain version by the wall
-     clock;
-  3. the main path: the same block through api.compress and
+  2. the five wide-coder kernels.  check: each against its plain PyTorch
+     version on a 4 MiB block of the corpus (the smallest block on which
+     the 1024-lane policy holds) through the port's own stages (native
+     LZP, device wide-aux BWT, device lane table and bit schedule): K1's
+     probability plane, K2's and K5's payloads (also against the native
+     codec with the same lane table, v3 and v2), K3's and K4's decoded
+     blocks (also against the input), all exactly equal (tolerance 0: a
+     lossless codec), the plain versions timed by the wall clock.  time:
+     each kernel timed with CUDA events on one 25 MiB block's own inputs
+     (bsc's default -b25; kernels only, after a warm-up), its payload or
+     decoded block again held against the native codec or the input;
+  3. the v3 main path: the 25 MiB block through api.compress and
      api.decompress with -m9 -e4 -G, launch counters set to 0 just before
-     and read just after.  Every kernel must have launched; the archive
-     must equal the one composed from the phase-2 stages and the native
-     wide encode; both the device decode and the native host decode must
-     restore the input.  Then each stage of the fused route is timed
+     and read just after.  K1, K2 and K3 must have launched and K4 and K5
+     not; the archive must equal the one composed from the stages and the
+     native wide encode; both the device decode and the native host decode
+     must restore the input.  Then each stage of the fused route is timed
      once, stage by stage, for the breakdown; the archive those stages
      compose must equal the main path's, so the breakdown cannot drift
-     from the code it times.
+     from the code it times;
+  4. the v2 main path: the same with wide_kernels.RANS = False.  K5 and K4
+     must have launched and K1, K2 and K3 not;
+  5. many blocks: three other 25 MiB blocks of the corpus, each after the
+     port's device BWT, through device_encode_many (each payload must
+     equal device_encode of its block) and device_decode_many (each block
+     must come back); prints the sustained MB/s.
 
-The script prints a JSON line of per-kernel numbers, the nvidia-smi line,
-and, last, {"ok": true, "device": ...} only when every phase passed.  It
-exits non-zero without CUDA or outside a checkout of the repository.
+The script prints a JSON line of per-kernel numbers (launches from the
+main path that runs the kernel: K1-K3 phase 3, K4 and K5 phase 4), the
+nvidia-smi line, and, last, {"ok": true, "device": ...} only when every
+phase passed.  It exits non-zero without CUDA or outside a checkout of the
+repository.
 
 Each kernel's bound_ms is the larger of its bytes (each input read once,
-each output written once; for K1 and K2 the max_bits rows of planes and
-probabilities the kernels touch) over 3.35 TB/s and its operations (one
-per coded bit, a floor) over 67 TFLOP/s, the H100 SXM's device-memory rate
-and peak outside the tensor cores.  The phase-2 lines also print a
-serial-chain reckoning: max_bits dependent steps per lane at one dependent
-integer instruction (4 cycles) each, at the card's maximum SM clock.  It
-is a model of a floor, not a measurement: a real step is dozens of
-dependent instructions.
+each output written once; for the encode kernels the max_bits rows of
+planes and probabilities they touch) over 3.35 TB/s and its operations
+(one per coded bit, a floor) over 67 TFLOP/s, the H100 SXM's device-memory
+rate and peak outside the tensor cores.  The phase-2 time lines also print
+a serial-chain reckoning: max_bits dependent steps per lane at one
+dependent integer instruction (4 cycles) each, at the card's maximum SM
+clock.  It is a model of a floor, not a measurement: a real step is dozens
+of dependent instructions.
 """
 
 from __future__ import annotations
@@ -53,8 +64,20 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 NONTENSOR_OPS_PER_S = 67e12  # H100 SXM peak outside the tensor cores
 STEP_CYCLES = 4              # latency of one dependent integer instruction
-BLOCK_MB = 25
+BLOCK = 25 << 20             # bsc's default block size, -b25
+PLAIN_BLOCK = 4 << 20        # phase 2's check block
+MANY_BLOCKS = 3
 TIMED_LAUNCHES = 5
+REPLACES = {  # kernel -> the Pallas kernel it replaces
+    "wide_model": "libbsc_tpu/ops/wide_kernels.py:546",
+    "wide_rans": "libbsc_tpu/ops/wide_kernels.py:749",
+    "wide_rc_encode": "libbsc_tpu/ops/wide_kernels.py:432",
+    "wide_decode": "libbsc_tpu/ops/wide_kernels.py:1729",
+    "wide_decode_v2": "libbsc_tpu/ops/wide_kernels.py:1729",
+}
+V3 = ("wide_model", "wide_rans", "wide_decode")
+V2 = ("wide_rc_encode", "wide_decode_v2")
+SOURCE = {"wide_decode_v2": "wide_decode"}  # K4 is K3's template twin
 
 
 def make_corpus(n_bytes: int) -> bytes:
@@ -152,8 +175,8 @@ def compose(data: bytes, lzp: bool, primary: int, aux: np.ndarray,
 def stages(data: bytes, features: int, device) -> dict:
     """The port's own stages on one block, as the fused route runs them:
     native LZP, device wide-aux BWT, device lane table and bit schedule;
-    and the -m9 -e4 archive composed from them with the native wide
-    encode."""
+    and, for each coder (v3 rANS, v2 range), the native wide encode with
+    that lane table and the -m9 -e4 archive composed from it."""
     import torch
 
     from libbsc_tpu_torch import constants as C
@@ -177,104 +200,166 @@ def stages(data: bytes, features: int, device) -> dict:
         fail("the device schedule refused the block")
     planes, sizes, max_bits, _IT = prep
     u_host = U.cpu().numpy()
-    native = wide.wide_encode(u_host.tobytes(), n_lanes=WK.LANES,
-                              sizes=sizes, rans=True)
-    archive = compose(data, lzp, int(primary), aux.cpu().numpy(), native)
+    native, archive = {}, {}
+    for rans in (True, False):
+        native[rans] = wide.wide_encode(u_host.tobytes(), n_lanes=WK.LANES,
+                                        sizes=sizes, rans=rans)
+        archive[rans] = compose(data, lzp, int(primary), aux.cpu().numpy(),
+                                native[rans])
+    coded = int(sum(((planes >> s) & 2).ne(0).sum() for s in (0, 2, 4, 6)))
     return {"U": u_host, "planes": planes, "sizes": sizes,
-            "max_bits": max_bits, "native": native, "archive": archive}
+            "max_bits": max_bits, "coded": coded, "native": native,
+            "archive": archive}
 
 
-def check_kernels(st: dict, device, clock_mhz: float) -> list:
-    """Phase 2: each kernel against its plain version on the main path's
-    inputs for this block."""
-    import torch
+def encode_payloads(st: dict) -> dict:
+    """K1 + K2 and K5 on the block's planes: kernel name -> (its output,
+    the payload assembled from it).  The payloads must be the native
+    codec's with the same lane table."""
+    from libbsc_tpu_torch.ops import wide_kernels as WK
 
+    planes, sizes, max_bits = st["planes"], st["sizes"], st["max_bits"]
+    n = len(st["U"])
+    probs = WK.model_probs(planes, max_bits)
+    k2 = WK.rans_encode(planes, probs, max_bits)
+    k5 = WK.rc_encode(planes, max_bits)
+    out = {"wide_model": (probs, None),
+           "wide_rans": (k2, WK._assemble_rans(n, *k2, sizes, max_bits)),
+           "wide_rc_encode": (k5, WK._assemble(n, *k5, sizes, max_bits))}
+    for name, rans in (("wide_rans", True), ("wide_rc_encode", False)):
+        if out[name][1] is None or out[name][1] != st["native"][rans]:
+            fail(f"{name}: the payload differs from the native codec's")
+    return out
+
+
+def decode_args(payload: bytes, device) -> tuple:
+    from libbsc_tpu_torch.ops import wide_kernels as WK
+
+    p = WK._dec_parse(payload)
+    if p is None:
+        fail("the payload does not take the kernel decode")
+    return WK._dec_args(p, device), p["rans"], int(p["gunits"].sum())
+
+
+def check_kernels(st: dict, device) -> dict:
+    """Phase 2 check: each kernel against its plain version on the main
+    path's inputs for this block.  Returns name -> {max_abs_err,
+    plain_ms}."""
     from libbsc_tpu_torch.ops import wide_kernels as WK
 
     planes, sizes, max_bits = st["planes"], st["sizes"], st["max_bits"]
     U = st["U"]
     n = len(U)
-    coded = int(sum(((planes >> s) & 2).ne(0).sum() for s in (0, 2, 4, 6)))
-    chain = max_bits * STEP_CYCLES / (clock_mhz * 1e3)
-    # the bytes K1 and K2 touch: max_bits rows of probabilities and the
-    # plane rows that hold them, not the bucketed planes' padding
+    res = {}
+    enc = encode_payloads(st)
+
+    probs = enc["wide_model"][0]
+    probs_p, ms = timed(lambda: WK.model_probs_plain(planes, max_bits))
+    res["wide_model"] = ((probs.long() - probs_p.long()).abs().max(), ms)
+    del probs_p
+
+    units, counts, fx = enc["wide_rans"][0]
+    (pu, pc, pf), ms = timed(lambda: WK.rans_encode_plain(
+        planes, probs, max_bits, int(units.shape[1])))
+    if WK._assemble_rans(n, pu, pc, pf, sizes, max_bits) != \
+            enc["wide_rans"][1]:
+        fail("K2's payload differs from its plain version's")
+    res["wide_rans"] = (max((counts.long() - pc.long()).abs().max(),
+                            (fx.long() - pf.long()).abs().max()), ms)
+    del pu, probs, enc["wide_model"]
+
+    units, counts = enc["wide_rc_encode"][0]
+    (pu, pc), ms = timed(lambda: WK.rc_encode_plain(
+        planes, max_bits, int(units.shape[1])))
+    if WK._assemble(n, pu, pc, sizes, max_bits) != enc["wide_rc_encode"][1]:
+        fail("K5's payload differs from its plain version's")
+    res["wide_rc_encode"] = ((counts.long() - pc.long()).abs().max(), ms)
+    del pu
+
+    for name, enc_name in (("wide_decode", "wide_rans"),
+                           ("wide_decode_v2", "wide_rc_encode")):
+        args, rans, _ = decode_args(enc[enc_name][1], device)
+        out = WK.decode_lanes(*args, rans=rans)
+        out_p, ms = timed(lambda: WK.decode_lanes_plain(*args, rans=rans))
+        res[name] = ((out.long() - out_p.long()).abs().max(), ms)
+        if out.cpu().numpy().tobytes() != U.tobytes():
+            fail(f"{name}: the decoded block differs from the input")
+    out = {}
+    for name, (err, ms) in res.items():
+        err = int(err)
+        if err:
+            fail(f"{name} differs from its plain version by {err}")
+        out[name] = {"max_abs_err": err, "plain_ms": ms}
+        print(f"phase 2 check {name}: equal to plain (plain {ms:.1f} ms), "
+              f"{max_bits} iterations, {n} bytes", flush=True)
+    return out
+
+
+def time_kernels(st: dict, device, clock_mhz: float) -> list:
+    """Phase 2 time: each kernel with CUDA events on this block's inputs,
+    its output held against the native codec or the input."""
+    from libbsc_tpu_torch.ops import wide_kernels as WK
+
+    planes, max_bits, coded = st["planes"], st["max_bits"], st["coded"]
+    n = len(st["U"])
+    enc = encode_payloads(st)
+    probs = enc["wide_model"][0]
+    # the bytes the encode kernels touch: max_bits rows of probabilities
+    # and the plane rows that hold them, not the bucketed planes' padding
     plane_bytes = -(-max_bits // 4) * WK.LANES
     prob_bytes = 4 * max_bits * WK.LANES
+    units2 = int(enc["wide_rans"][0][1].long().sum())
+    units5 = int(enc["wide_rc_encode"][0][1].long().sum())
+    runs = {
+        "wide_model": (lambda: WK.model_probs(planes, max_bits),
+                       plane_bytes + prob_bytes + 4 * 281),
+        "wide_rans": (lambda: WK.rans_encode(planes, probs, max_bits),
+                      plane_bytes + prob_bytes + 4 * units2 + 4 * 8
+                      + 4 * WK.LANES),
+        "wide_rc_encode": (lambda: WK.rc_encode(planes, max_bits),
+                           plane_bytes + 4 * units5 + 4 * 8 + 4 * 281),
+    }
+    for name, enc_name in (("wide_decode", "wide_rans"),
+                           ("wide_decode_v2", "wide_rc_encode")):
+        args, rans, units = decode_args(enc[enc_name][1], device)
+        if WK.decode_lanes(*args, rans=rans).cpu().numpy().tobytes() != \
+                st["U"].tobytes():
+            fail(f"{name}: the decoded block differs from the input")
+        runs[name] = ((lambda a=args, r=rans: WK.decode_lanes(*a, rans=r)),
+                      4 * units + 16 * WK.LANES + 4 * 281 + n)
+    del enc
+    chain = max_bits * STEP_CYCLES / (clock_mhz * 1e3)
     rows = []
-
-    def row(name, err, ms, plain, nbytes):
+    for name in ("wide_model", "wide_rans", "wide_rc_encode", "wide_decode",
+                 "wide_decode_v2"):
+        fn, nbytes = runs[name]
+        ms = cuda_ms(fn, TIMED_LAUNCHES)
         b, by = bound_ms(nbytes, coded)
         rows.append({"name": name, "route": "cuda",
-                     "source": f"libbsc_tpu_torch/csrc/{name}.cu",
-                     "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                     "source": "libbsc_tpu_torch/csrc/"
+                               f"{SOURCE.get(name, name)}.cu",
+                     "replaces": REPLACES[name], "ms": ms,
                      "bound_ms": b, "bound_by": by, "library_ms": None,
                      "iters": max_bits, "coded_bits": coded})
-
-    # K1: the probability plane
-    probs = WK.model_probs(planes, max_bits)
-    probs_p, plain1 = timed(lambda: WK.model_probs_plain(planes, max_bits))
-    err1 = int((probs.long() - probs_p.long()).abs().max())
-    del probs_p
-    ms1 = cuda_ms(lambda: WK.model_probs(planes, max_bits), TIMED_LAUNCHES)
-    row("wide_model", err1, ms1, plain1, plane_bytes + prob_bytes + 4 * 281)
-    rows[-1]["replaces"] = "libbsc_tpu/ops/wide_kernels.py:546"
-
-    # K2: units, counts and final states; the payload against the plain
-    # version's and the native codec's with the same lane table
-    units, counts, fx = WK.rans_encode(planes, probs, max_bits)
-    cap = int(units.shape[1])
-    plain, plain2 = timed(
-        lambda: WK.rans_encode_plain(planes, probs, max_bits, cap))
-    pay_k = WK._assemble_rans(n, units, counts, fx, sizes, max_bits)
-    pay_p = WK._assemble_rans(n, *plain, sizes, max_bits)
-    if pay_k is None or pay_k != pay_p or pay_k != st["native"]:
-        fail("K2 payload differs from its plain version or the native codec")
-    err2 = max(int((counts.long() - plain[1].long()).abs().max()),
-               int((fx.long() - plain[2].long()).abs().max()))
-    del plain
-    ms2 = cuda_ms(lambda: WK.rans_encode(planes, probs, max_bits),
-                  TIMED_LAUNCHES)
-    n_units = int(counts.long().sum())
-    row("wide_rans", err2, ms2, plain2,
-        plane_bytes + prob_bytes + 4 * n_units + 4 * 8 + 4 * WK.LANES)
-    rows[-1]["replaces"] = "libbsc_tpu/ops/wide_kernels.py:749"
-    del probs, units
-
-    # K3: decode the payload back to the block
-    p = WK._dec_parse(pay_k)
-    if p is None:
-        fail("the payload does not take the kernel decode")
-    args = WK._dec_args(p, device)
-    out_k = WK.decode_lanes(*args)
-    out_p, plain3 = timed(lambda: WK.decode_lanes_plain(*args))
-    err3 = int((out_k.long() - out_p.long()).abs().max())
-    if err3 or out_k.cpu().numpy().tobytes() != U.tobytes():
-        fail("K3 output differs from its plain version or the input")
-    ms3 = cuda_ms(lambda: WK.decode_lanes(*args), TIMED_LAUNCHES)
-    row("wide_decode", err3, ms3, plain3,
-        4 * int(p["gunits"].sum()) + 16 * WK.LANES + 4 * 281 + n)
-    rows[-1]["replaces"] = "libbsc_tpu/ops/wide_kernels.py:1729"
-
-    if err1 or err2:
-        fail(f"kernel differs from its plain version: K1 {err1}, K2 {err2}")
-    for r in rows:
-        print(f"phase 2 {r['name']}: equal to plain, {r['ms']:.3f} ms "
-              f"(plain {r['plain_ms']:.1f} ms, bound {r['bound_ms']:.4f} ms"
-              f" by {r['bound_by']}), {max_bits} iterations, {coded} coded "
-              f"bits, {n} bytes; serial-chain reckoning {chain:.4f} ms "
-              f"(one 4-cycle step per iteration, a model, not measured)",
-              flush=True)
+        print(f"phase 2 time {name}: {ms:.3f} ms (bound {b:.4f} ms by {by})"
+              f", {max_bits} iterations, {coded} coded bits, {n} bytes; "
+              f"serial-chain reckoning {chain:.4f} ms (one 4-cycle step per "
+              f"iteration, a model, not measured)", flush=True)
     return rows
 
 
-def main_path(data: bytes, features: int, composed: bytes, device):
-    """Phase 3: the -m9 -e4 -G main path on one block."""
+def main_path(data: bytes, features: int, composed: bytes, device,
+              rans: bool):
+    """Phase 3 (v3 coder) or 4 (v2): the -m9 -e4 -G main path on one
+    block."""
     import torch
 
     import libbsc_tpu_torch as P
     from libbsc_tpu_torch import constants as C
     from libbsc_tpu_torch.ops import wide_kernels as WK
 
+    phase, coder = (3, "v3") if rans else (4, "v2")
+    WK.RANS = rans
     P.init(features, device=device)
     kw = dict(lzp_hash_size=C.DEFAULT_LZPHASHSIZE,
               lzp_min_len=C.DEFAULT_LZPMINLEN,
@@ -287,21 +372,72 @@ def main_path(data: bytes, features: int, composed: bytes, device):
     back, t_dec = timed(lambda: P.decompress(archive))
     launches = dict(WK.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
+    WK.RANS = True
+    ran, idle = (V3, V2) if rans else (V2, V3)
     if back != data:
-        fail("the device decode did not restore the input")
-    if min(launches.values()) == 0:
-        fail(f"a kernel of the main path was not launched: {launches}")
+        fail(f"{coder}: the device decode did not restore the input")
+    if min(launches[k] for k in ran) == 0 or max(launches[k] for k in idle):
+        fail(f"{coder}: the main path did not run its kernels, and only "
+             f"them: {launches}")
     if archive != composed:
-        fail("the archive differs from the one composed from the stages")
+        fail(f"{coder}: the archive differs from the one composed from the "
+             "stages")
     P.init(features & ~C.FEATURE_CUDA, device=device)
     if P.decompress(archive) != data:
-        fail("the native host decode did not restore the input")
+        fail(f"{coder}: the native host decode did not restore the input")
     mb = len(data) / 1e6
-    print(f"phase 3 main path: {len(data)} -> {len(archive)} bytes, encode "
-          f"{mb / t_enc * 1e3:.2f} MB/s ({t_enc:.1f} ms), decode "
-          f"{mb / t_dec * 1e3:.2f} MB/s ({t_dec:.1f} ms), peak device "
+    print(f"phase {phase} {coder} main path: {len(data)} -> {len(archive)} "
+          f"bytes, encode {mb / t_enc * 1e3:.2f} MB/s ({t_enc:.1f} ms), "
+          f"decode {mb / t_dec * 1e3:.2f} MB/s ({t_dec:.1f} ms), peak device "
           f"memory {peak} B, launches {launches}", flush=True)
     return launches, archive
+
+
+def many(blocks: list, device) -> None:
+    """Phase 5: device_encode_many / device_decode_many on several blocks,
+    each after the port's device BWT.  device_encode_many takes the native
+    lane table; on these blocks it puts a group over the 2^23 bytes both
+    packages' kernel decode takes, so those payloads take the native codec
+    and the decode leg gets each block's device-table payload instead (the
+    fused route's, the one -m9 -e4 -G archives hold)."""
+    import torch
+
+    from libbsc_tpu_torch import engine
+    from libbsc_tpu_torch.ops import bwt
+    from libbsc_tpu_torch.ops import wide_kernels as WK
+
+    us, resident = [], []
+    for b in blocks:
+        u, _, _ = bwt.bwt_encode_wideaux_device(
+            torch.from_numpy(np.frombuffer(b, np.uint8).copy()).to(device),
+            engine.wideaux_rate(len(b)))
+        us.append(u.cpu().numpy().tobytes())
+        resident.append(WK.device_encode_resident(u))
+    k = len(us)
+    WK.reset_launches()
+    payloads, t_enc = timed(lambda: WK.device_encode_many(us, device))
+    enc = dict(WK.LAUNCHES)
+    WK.reset_launches()
+    back, t_dec = timed(lambda: WK.device_decode_many(resident, device))
+    dec = dict(WK.LAUNCHES)
+    if enc["wide_model"] != k or enc["wide_rans"] != k \
+            or dec["wide_decode"] != k:
+        fail(f"many: not one launch of each v3 kernel a block: encode "
+             f"{enc}, decode {dec}")
+    for i, (u, p, b) in enumerate(zip(us, payloads, back)):
+        if p is None or p != WK.device_encode(u, device):
+            fail(f"many: payload {i} differs from device_encode's")
+        if b != u:
+            fail(f"many: block {i} was not restored")
+    native = sum(WK._dec_parse(p) is None for p in payloads)
+    mb = sum(map(len, us)) / 1e6
+    print(f"phase 5 many: {k} blocks of {len(us[0])} bytes, sustained "
+          f"encode {mb / t_enc * 1e3:.2f} MB/s ({t_enc:.1f} ms, "
+          f"{sum(map(len, payloads))} bytes), decode "
+          f"{mb / t_dec * 1e3:.2f} MB/s ({t_dec:.1f} ms, "
+          f"{sum(map(len, resident))} bytes); {native} of {k} native-table "
+          "payloads take the native codec (a group of 2^23 bytes or more)",
+          flush=True)
 
 
 def breakdown(data: bytes, features: int, archive: bytes, device) -> dict:
@@ -395,16 +531,26 @@ def main() -> int:
                 print(f"  {src.stem}: {line.strip()}")
 
     features = C.FEATURE_FASTMODE | C.FEATURE_MULTITHREADING | C.FEATURE_CUDA
-    data = make_corpus(BLOCK_MB << 20)
+    data = make_corpus(BLOCK)
+    checked = check_kernels(stages(data[:PLAIN_BLOCK], features, device),
+                            device)
     st = stages(data, features, device)
-    rows = check_kernels(st, device, clock_mhz)
+    rows = time_kernels(st, device, clock_mhz)
     composed = st["archive"]
     del st
     torch.cuda.empty_cache()
-    launches, archive = main_path(data, features, composed, device)
+    launches, archive = main_path(data, features, composed[True], device,
+                                  rans=True)
     breakdown(data, features, archive, device)
+    launches.update({k: v for k, v in main_path(
+        data, features, composed[False], device, rans=False)[0].items()
+        if k in V2})
+    corpus = make_corpus(MANY_BLOCKS * BLOCK)
+    many([corpus[i * BLOCK:(i + 1) * BLOCK] for i in range(MANY_BLOCKS)],
+         device)
     for r in rows:
-        r["launches"] = launches[r["name"]]
+        r.update(checked[r["name"]], launches=launches[r["name"]],
+                 plain_at_bytes=PLAIN_BLOCK)
     print(json.dumps({"kernels": rows}))
     print(smi())
     print(json.dumps({"ok": True, "device": {

@@ -229,12 +229,6 @@ def _decode_to_sorter(block: bytes, expected_size: int | None):
 
     lz = None
     sorted_done = False
-    if device is not None:
-        from .ops import wide_kernels
-
-        if wide_kernels.needs_v2_decode(payload):
-            raise BscError(C.NOT_SUPPORTED, "v2 wide payloads (no rANS "
-                           "flag) need the K4 decode kernel, not ported yet")
     if block_sorter == C.BLOCKSORTER_BWT_WIDEAUX and device is not None:
         (tsize,) = struct.unpack_from("<I", payload, 0)
         out = engine.decompress_block_device(
@@ -243,6 +237,8 @@ def _decode_to_sorter(block: bytes, expected_size: int | None):
         if out is not None:
             lz, sorted_done = out, True
     if lz is None and device is not None:
+        from .ops import wide_kernels
+
         out = wide_kernels.device_decode(payload, device)
         if out is not None:
             lz = np.frombuffer(out, dtype=np.uint8).copy()

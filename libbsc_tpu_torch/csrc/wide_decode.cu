@@ -1,14 +1,23 @@
-// K3, the wide decoder (v3, binary rANS lanes).
+// K3 and K4, the wide decoder: v3 (binary rANS lanes, K3) and v2
+// (carry-less range coder, K4), one template.
 //
-// Replaces the Pallas kernel _build_decode_kernel(rans=True) in the JAX
-// package's libbsc_tpu/ops/wide_kernels.py.  Per lane and iteration:
-// slot = x & 0xFFF picks the bit (slot >= p), x contracts by the bit's
-// frequency, the context adapts, and a lane whose x fell under 2^16 takes
-// the group's next stream unit: renormalising lanes consume units in lane
-// order, so a lane's unit is stream[cursor + (renormalising lanes before
-// it)].  The state machine (wide_sm.cuh) turns bits into (rank, run)
-// pairs; a completed run moves its symbol to the front of the lane's MTF
-// table and is written straight into the lane's span of the output block.
+// Replaces the Pallas kernel _build_decode_kernel in the JAX package's
+// libbsc_tpu/ops/wide_kernels.py: rans=True (K3) and rans=False (K4).  Per
+// lane and iteration the lane decodes one bit with its context's
+// probability p and adapts the context:
+//   v3: slot = x & 0xFFF picks the bit (slot >= p) and x contracts by the
+//       bit's frequency; the lane renormalises when x falls under 2^16.
+//   v2: r = (rng >> 12) * p, bit = (code - low) >= r, and the bit's side
+//       of [low, low + rng) is kept; when rng falls under 2^16 the lane
+//       clamps an interval that straddles a 2^16 boundary to its larger
+//       side (the upper one only when strictly larger), and low and rng
+//       shift up 16.
+// A renormalising lane takes the group's next stream unit into x (v3) or
+// code (v2): renormalising lanes consume units in lane order, so a lane's
+// unit is stream[cursor + (renormalising lanes before it)].  The state
+// machine (wide_sm.cuh) turns bits into (rank, run) pairs; a completed run
+// moves its symbol to the front of the lane's MTF table and is written
+// straight into the lane's span of the output block.
 //
 // What bounds it on the H100: the serial chain of IT dependent steps per
 // lane (the next bit's context depends on this one), plus one block-wide
@@ -22,6 +31,8 @@
 // symbol is one indexed load and its move-to-front a loop over the rank's
 // entries.  Writing runs in place removes the JAX route's record staging,
 // scatter and cumsum.  The group stops as soon as all its lanes are done.
+// The two coders differ only in the bit step; the template keeps the rest
+// one code path, and all u32 wrap-around is native.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC (libbsc_tpu_torch/ops/_cuda.py).
@@ -39,6 +50,7 @@ namespace {
 constexpr int kModelBytes = kNctx * kGroup * 2;
 constexpr int kSmem = kModelBytes + 256 * kGroup;
 
+template <bool kRans>
 __global__ void __launch_bounds__(kGroup)
 wide_decode_kernel(const uint32_t* __restrict__ warm,
                    const int* __restrict__ goff,
@@ -62,7 +74,8 @@ wide_decode_kernel(const uint32_t* __restrict__ warm,
   const int* gs = stream + (size_t)g * srow;
   int left = lane_sz[lane];
   LaneState s = fresh_state(left > 0 ? kRFlag : kDone);
-  uint32_t x = warm[lane];
+  uint32_t x = warm[lane];  // v3: the rANS state; v2: the code word
+  uint32_t low = 0, rng = 0xFFFFFFFFu;  // v2 only
   int cursor = goff[lane];  // same value in every thread of the group
   uint8_t* dst = out + lstart[lane];
 
@@ -74,11 +87,37 @@ wide_decode_kernel(const uint32_t* __restrict__ warm,
     if (active) {
       uint16_t* m = &model[sm_ctx(s) * kGroup + tid];
       const uint32_t p = *m;
-      const uint32_t slot = x & 0xFFFu;
-      const uint32_t hi = x >> 12;
-      bit = slot >= p;
-      x = bit ? (4096u - p) * hi + slot - p : p * hi + slot;
-      ren = x < (1u << 16);
+      if (kRans) {
+        const uint32_t slot = x & 0xFFFu;
+        const uint32_t hi = x >> 12;
+        bit = slot >= p;
+        x = bit ? (4096u - p) * hi + slot - p : p * hi + slot;
+        ren = x < (1u << 16);
+      } else {
+        const uint32_t r = (rng >> 12) * p;
+        bit = x - low >= r;
+        if (bit) {
+          low += r;
+          rng -= r;
+        } else {
+          rng = r;
+        }
+        if (rng < (1u << 16)) {
+          if (((low ^ (low + rng - 1u)) >> 16) != 0) {
+            const uint32_t lo_part = 0x10000u - (low & 0xFFFFu);
+            const uint32_t hi_part = rng - lo_part;
+            if (hi_part > lo_part) {
+              low += lo_part;
+              rng = hi_part;
+            } else {
+              rng = lo_part;
+            }
+          }
+          low <<= 16;
+          rng <<= 16;
+          ren = true;
+        }
+      }
       *m = (uint16_t)adapt(p, bit);
     }
     const unsigned mask = __ballot_sync(0xFFFFFFFFu, ren);
@@ -113,21 +152,40 @@ wide_decode_kernel(const uint32_t* __restrict__ warm,
   }
 }
 
+template <bool kRans>
+int launch(const uint32_t* warm, const int* goff, const int* lane_sz,
+           const int* lstart, const int* stream, int srow, int iters,
+           const int* priors, uint8_t* out, void* stream_handle) {
+  cudaError_t err = cudaFuncSetAttribute(
+      wide_decode_kernel<kRans>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSmem);
+  if (err != cudaSuccess) return (int)err;
+  wide_decode_kernel<kRans>
+      <<<kGroups, kGroup, kSmem, (cudaStream_t)stream_handle>>>(
+          warm, goff, lane_sz, lstart, stream, srow, iters, priors, out);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// warm: u32 [1024] initial states; goff: i32 [1024] first unit after the
-// warm-up pairs (per group); lane_sz, lstart: i32 [1024] lane sizes and
-// absolute byte starts; stream: i32 [8, srow] unit segments (u16 values);
-// out: u8 [sum(lane_sz)].
+// warm: u32 [1024] initial states (v3) or code words (v2); goff: i32
+// [1024] first unit after the warm-up pairs (per group); lane_sz, lstart:
+// i32 [1024] lane sizes and absolute byte starts; stream: i32 [8, srow]
+// unit segments (u16 values); out: u8 [sum(lane_sz)].
 extern "C" int wide_decode_launch(const uint32_t* warm, const int* goff,
                                   const int* lane_sz, const int* lstart,
                                   const int* stream, int srow, int iters,
                                   const int* priors, uint8_t* out,
                                   void* stream_handle) {
-  cudaError_t err = cudaFuncSetAttribute(
-      wide_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-  if (err != cudaSuccess) return (int)err;
-  wide_decode_kernel<<<kGroups, kGroup, kSmem, (cudaStream_t)stream_handle>>>(
-      warm, goff, lane_sz, lstart, stream, srow, iters, priors, out);
-  return (int)cudaGetLastError();
+  return launch<true>(warm, goff, lane_sz, lstart, stream, srow, iters,
+                      priors, out, stream_handle);
+}
+
+extern "C" int wide_decode_v2_launch(const uint32_t* warm, const int* goff,
+                                     const int* lane_sz, const int* lstart,
+                                     const int* stream, int srow, int iters,
+                                     const int* priors, uint8_t* out,
+                                     void* stream_handle) {
+  return launch<false>(warm, goff, lane_sz, lstart, stream, srow, iters,
+                       priors, out, stream_handle);
 }

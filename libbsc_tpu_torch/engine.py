@@ -3,11 +3,13 @@ native runtime, and the fused device stages.
 
 The fused encode (:func:`compress_block_device`) copies the LZP'd block to
 the device once and runs the wide-aux BWT, the lane balancer, the bit
-schedule and kernels K1 and K2 there; only the payload comes back.  The
-fused decode runs K3 and the wide-aux inverse BWT on the device; only the
-final bytes come back.  Neither catches errors: a kernel that fails to
-build or launch raises.  They return None only where the block's data
-sends it to the per-stage route, under the JAX package's conditions.
+schedule and kernels K1 and K2 (or K5, the v2 coder, when
+``wide_kernels.RANS`` is False) there; only the payload comes back.  The
+fused decode runs K3 (or K4 for a v2 payload) and the wide-aux inverse
+BWT on the device; only the final bytes come back.  Neither catches
+errors: a kernel that fails to build or launch raises.  They return None
+only where the block's data sends it to the per-stage route, under the
+JAX package's conditions.
 """
 
 from __future__ import annotations
@@ -146,8 +148,8 @@ def compress_block_device(lz: np.ndarray, device):
 
 def decompress_block_device(payload: bytes, index: int, indexes, r: int,
                             n: int, device):
-    """Fused device decode: K3's block stays on the device and feeds the
-    wide-aux chase.  Returns the (pre-LZP) bytes as ndarray, or None when
+    """Fused device decode: K3's or K4's block stays on the device and
+    feeds the wide-aux chase.  Returns the (pre-LZP) bytes as ndarray, or None when
     the block takes the per-stage route."""
     if n < _DEVICE_MIN_BLOCK:
         return None

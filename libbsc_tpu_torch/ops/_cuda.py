@@ -28,7 +28,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 _lock = threading.Lock()
-_libs: dict = {}
+_libs: dict = {}  # stem -> CDLL
+_fns: dict = {}   # launch name -> its C function
 
 
 def sources() -> list[Path]:
@@ -87,27 +88,35 @@ def build_log(name: str) -> str:
 
 
 _VP, _I = ctypes.c_void_p, ctypes.c_int
+_DECODE_ARGS = [_VP, _VP, _VP, _VP, _VP, _I, _I, _VP, _VP, _VP]
+# launch name -> (csrc/<stem>.cu, C symbol, argtypes)
 _SIGNATURES = {
-    "wide_model": ("wide_model_launch", [_VP, _I, _VP, _VP, _VP]),
-    "wide_rans": ("wide_rans_launch", [_VP, _VP, _I, _I, _VP, _VP, _VP, _VP]),
-    "wide_decode": ("wide_decode_launch",
-                    [_VP, _VP, _VP, _VP, _VP, _I, _I, _VP, _VP, _VP]),
+    "wide_model": ("wide_model", "wide_model_launch",
+                   [_VP, _I, _VP, _VP, _VP]),
+    "wide_rans": ("wide_rans", "wide_rans_launch",
+                  [_VP, _VP, _I, _I, _VP, _VP, _VP, _VP]),
+    "wide_decode": ("wide_decode", "wide_decode_launch", _DECODE_ARGS),
+    "wide_decode_v2": ("wide_decode", "wide_decode_v2_launch", _DECODE_ARGS),
+    "wide_rc_encode": ("wide_rc_encode", "wide_rc_encode_launch",
+                       [_VP, _I, _I, _VP, _VP, _VP, _VP]),
 }
 
 
 def launcher(name: str):
-    """The C launch function of ``csrc/<name>.cu`` with its argtypes set,
-    building the kernels first if needed.  It returns a cudaError_t."""
+    """The C launch function ``name`` with its argtypes set, building the
+    kernels first if needed.  It returns a cudaError_t."""
     with _lock:
-        fn = _libs.get(name)
+        fn = _fns.get(name)
         if fn is None:
-            build_all()
-            lib = ctypes.CDLL(str(_target(name)))
-            sym, argtypes = _SIGNATURES[name]
+            stem, sym, argtypes = _SIGNATURES[name]
+            lib = _libs.get(stem)
+            if lib is None:
+                build_all()
+                lib = _libs[stem] = ctypes.CDLL(str(_target(stem)))
             fn = getattr(lib, sym)
             fn.restype = ctypes.c_int
             fn.argtypes = argtypes
-            _libs[name] = fn
+            _fns[name] = fn
         return fn
 
 

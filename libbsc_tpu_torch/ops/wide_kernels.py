@@ -1,19 +1,29 @@
-"""The wide coder on the card: kernels K1 (model), K2 (rANS encode) and K3
-(decode), their plain PyTorch versions, and the host stages around them.
+"""The wide coder on the card: kernels K1 (model), K2 (rANS encode), K5
+(v2 range encode), K3 and K4 (v3 and v2 decode), their plain PyTorch
+versions, and the host stages around them.
 
 Encode: the lane table and the per-lane bit schedule (packed 2-bit
 ``bit | active`` fields, planes ``u8 [IT/4, 1024]``, lane = group * 128 +
 lane-in-group) come from the native host walker (:func:`device_encode`)
-or from the device schedule (:func:`device_encode_resident`).  K1 runs
-each lane's model forward and writes the probability plane; K2 walks the
-planes backward doing binary rANS and leaves each group's units, in the
-decoder's consumption order, at the end of the group's buffer;
-:func:`_assemble_rans` builds the payload (``ops/wide.py`` of the JAX
-package specifies it).
+or from the device schedule (:func:`device_encode_resident`).  With
+``RANS`` (the default, as in the JAX package) K1 runs each lane's model
+forward and writes the probability plane, K2 walks the planes backward
+doing binary rANS and leaves each group's units, in the decoder's
+consumption order, at the end of the group's buffer, and
+:func:`_assemble_rans` builds the v3 payload.  With ``RANS = False`` K5
+runs the model and the v2 carry-less range coder in one forward pass and
+leaves each group's stream at the head of its buffer, and
+:func:`_assemble` builds the v2 payload (``ops/wide.py`` of the JAX
+package specifies both formats).
 
 Decode: :func:`_dec_parse` reads the payload, :func:`_prep` cuts the unit
-stream into per-group segments and warm-up words, and K3 decodes every
-lane straight into its span of the output block.
+stream into per-group segments and warm-up words, and K3 (v3, flag bit 2
+set) or K4 (v2) decodes every lane straight into its span of the output
+block.
+
+:func:`device_encode_many` and :func:`device_decode_many` pipeline
+several blocks: the host walker of the next block, or the copy of the
+previous block to the host, runs while a block's kernels run.
 
 Each kernel wrapper launches its CUDA kernel for CUDA tensors (and counts
 the launch in ``LAUNCHES``) and runs its plain version for CPU tensors.
@@ -25,6 +35,7 @@ uint32 shifts or compares.
 from __future__ import annotations
 
 import struct
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -36,13 +47,16 @@ from . import wide as W
 GROUPS = 8
 LANES = GROUPS * W.GROUP  # the kernels' lane count
 TI = 256                  # iteration-bucket granule
+RANS = True  # encode coder: True = v3 rANS (K1 + K2), False = v2 range (K5)
 
-LAUNCHES = {"wide_model": 0, "wide_rans": 0, "wide_decode": 0}
+LAUNCHES = {"wide_model": 0, "wide_rans": 0, "wide_rc_encode": 0,
+            "wide_decode": 0, "wide_decode_v2": 0}
 
 _PH_RFLAG, _PH_REXP, _PH_RMAN, _PH_UFLAG, _PH_UEXP, _PH_UMAN, _PH_DONE = \
     range(7)
 _RM_OFF = (0, 0, 0, 1, 4, 11, 26, 41, 56)
 _SINK = 511  # context of an inactive lane; never adapted
+_M32 = 0xFFFFFFFF
 
 
 def reset_launches() -> None:
@@ -310,15 +324,117 @@ def rans_encode_plain(planes, probs, max_bits: int, cap: int):
 
 
 # ---------------------------------------------------------------------------
-# K3: decode
+# K5: v2 range encode (model and coder in one forward pass)
+# ---------------------------------------------------------------------------
+
+def _rc_split(low, rng, p, bit, active):
+    """The v2 coder's interval split for one bit (u32 values in int64):
+    a one keeps [low + r, rng - r), a zero [low, r), r = (rng >> 12) * p.
+    Inactive lanes keep their interval."""
+    r = (rng >> 12) * p
+    one = active & (bit == 1)
+    return (torch.where(one, (low + r) & _M32, low),
+            torch.where(active, torch.where(one, rng - r, r), rng))
+
+
+def _rc_renorm(low, rng, ren):
+    """The v2 coder's renormalisation of the lanes in ``ren``: an interval
+    straddling a 2^16 boundary is clamped to its larger side (the upper
+    one only when strictly larger), then low and rng shift up 16.
+    Returns (low, rng, the unit a renormalising lane emits)."""
+    straddle = ((low ^ ((low + rng - 1) & _M32)) >> 16) != 0
+    lo_part = 0x10000 - (low & 0xFFFF)
+    hi_part = (rng - lo_part) & _M32
+    clamp = ren & straddle
+    take_hi = clamp & (hi_part > lo_part)
+    low = torch.where(take_hi, (low + lo_part) & _M32, low)
+    rng = torch.where(clamp, torch.where(take_hi, hi_part, lo_part), rng)
+    return (torch.where(ren, (low << 16) & _M32, low),
+            torch.where(ren, (rng << 16) & _M32, rng), low >> 16)
+
+
+def rc_encode(planes: torch.Tensor, max_bits: int):
+    """K5.  Returns (units i32 [8, cap], counts i32 [8]): group g's stream,
+    in the decoder's consumption order (the warm-up pairs of the live
+    lanes, then one delayed unit per renormalisation event), is
+    units[g, :counts[g]]."""
+    rows = planes.shape[0]
+    _check(planes, torch.uint8, (rows, LANES), "planes")
+    if not 0 <= max_bits <= 4 * rows:
+        raise ValueError("max_bits exceeds the planes")
+    dev = _same_device("rc_encode", planes)
+    cap = W.GROUP * (max_bits + 2)  # one unit per lane-iteration + flush
+    if dev.type == "cpu":
+        return rc_encode_plain(planes, max_bits, cap)
+    units = torch.empty((GROUPS, cap), dtype=torch.int32, device=dev)
+    counts = torch.empty(GROUPS, dtype=torch.int32, device=dev)
+    pri = priors_tensor(dev)
+    fn = _cuda.launcher("wide_rc_encode")
+    rc = fn(planes.data_ptr(), max_bits, cap, pri.data_ptr(),
+            units.data_ptr(), counts.data_ptr(), _cuda.stream_handle(dev))
+    _cuda.check("wide_rc_encode", rc)
+    LAUNCHES["wide_rc_encode"] += 1
+    return units, counts
+
+
+def rc_encode_plain(planes, max_bits: int, cap: int):
+    """K5's plain version.  A lane's r-th unit (its emissions, then its two
+    flush units) goes to warm-up slot r when r < 2, else to the slot of
+    its event r - 2; slot_a and slot_b hold the slots of its last two
+    events."""
+    dev = planes.device
+    units = torch.zeros((GROUPS, cap), dtype=torch.int32, device=dev)
+    model = torch.zeros((LANES, 512), dtype=torch.int64, device=dev)
+    model[:, :W.NCTX] = priors_tensor(dev).long()
+    st = _fresh_state(torch.full((LANES,), _PH_RFLAG, dtype=torch.int64,
+                                 device=dev))
+    low = torch.zeros(LANES, dtype=torch.int64, device=dev)
+    rng = torch.full((LANES,), _M32, dtype=torch.int64, device=dev)
+    live = (_fields(planes, 0) & 2 != 0) if max_bits else \
+        torch.zeros(LANES, dtype=torch.bool, device=dev)
+    live2 = live.view(GROUPS, W.GROUP).long()
+    warm = (2 * (live2.cumsum(1) - live2)).view(-1)
+    cursor = 2 * live2.sum(1)
+    group = torch.arange(LANES, device=dev) // W.GROUP
+    emitted = torch.zeros(LANES, dtype=torch.int64, device=dev)
+    slot_a = torch.zeros_like(emitted)
+    slot_b = torch.zeros_like(emitted)
+    for i in range(max_bits + 2):
+        if i < max_bits:
+            fld = _fields(planes, i)
+            bit, active = fld & 1, (fld & 2) != 0
+            ctx = _sm_ctx(st, active)[:, None]
+            p = model.gather(1, ctx)[:, 0]
+            model.scatter_(1, ctx,
+                           torch.where(active, _adapt(p, bit), p)[:, None])
+            st, _, _ = _sm_next(st, bit, active)
+            low, rng = _rc_split(low, rng, p, bit, active)
+            put = active & (rng < (1 << 16))
+            low, rng, unit = _rc_renorm(low, rng, put)
+            ren2 = put.view(GROUPS, W.GROUP).long()
+            slot = (cursor[:, None] + ren2.cumsum(1) - ren2).view(-1)
+            cursor = cursor + ren2.sum(1)
+        else:  # the flush: low's high half, then its low half
+            put, unit, slot = live, low >> 16, slot_b
+            low = (low << 16) & _M32
+        at = torch.where(emitted < 2, warm + emitted, slot_a)
+        units[group[put], at[put]] = unit[put].to(torch.int32)
+        slot_a = torch.where(put, slot_b, slot_a)
+        slot_b = torch.where(put, slot, slot_b)
+        emitted = emitted + put.long()
+    return units, cursor.to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# K3 (v3) and K4 (v2): decode
 # ---------------------------------------------------------------------------
 
 def decode_lanes(warm, goff, lane_sz, lstart, stream, max_bits: int,
-                 n: int) -> torch.Tensor:
-    """K3.  warm: i32 [1024] initial states (u32 bit pattern); goff,
-    lane_sz, lstart: i32 [1024] (first unit after the warm-up pairs, lane
-    sizes, absolute lane starts); stream: i32 [8, S] per-group unit
-    segments.  Returns the decoded block u8 [n]."""
+                 n: int, rans: bool = True) -> torch.Tensor:
+    """K3 (``rans``) or K4.  warm: i32 [1024] initial states or code words
+    (u32 bit pattern); goff, lane_sz, lstart: i32 [1024] (first unit after
+    the warm-up pairs, lane sizes, absolute lane starts); stream: i32
+    [8, S] per-group unit segments.  Returns the decoded block u8 [n]."""
     for t, name in ((warm, "warm"), (goff, "goff"), (lane_sz, "lane_sz"),
                     (lstart, "lstart")):
         _check(t, torch.int32, (LANES,), name)
@@ -326,26 +442,29 @@ def decode_lanes(warm, goff, lane_sz, lstart, stream, max_bits: int,
     dev = _same_device("decode_lanes", warm, goff, lane_sz, lstart, stream)
     if dev.type == "cpu":
         return decode_lanes_plain(warm, goff, lane_sz, lstart, stream,
-                                  max_bits, n)
+                                  max_bits, n, rans)
+    name = "wide_decode" if rans else "wide_decode_v2"
     out = torch.empty(n, dtype=torch.uint8, device=dev)
     pri = priors_tensor(dev)
-    fn = _cuda.launcher("wide_decode")
+    fn = _cuda.launcher(name)
     rc = fn(warm.data_ptr(), goff.data_ptr(), lane_sz.data_ptr(),
             lstart.data_ptr(), stream.data_ptr(), int(stream.shape[1]),
             max_bits, pri.data_ptr(), out.data_ptr(),
             _cuda.stream_handle(dev))
-    _cuda.check("wide_decode", rc)
-    LAUNCHES["wide_decode"] += 1
+    _cuda.check(name, rc)
+    LAUNCHES[name] += 1
     return out
 
 
 def decode_lanes_plain(warm, goff, lane_sz, lstart, stream, max_bits: int,
-                       n: int) -> torch.Tensor:
+                       n: int, rans: bool = True) -> torch.Tensor:
     dev = warm.device
     S = int(stream.shape[1])
     left = lane_sz.long()
     st = _fresh_state(torch.where(left > 0, _PH_RFLAG, _PH_DONE))
-    x = i32_to_u32(warm)
+    x = i32_to_u32(warm)  # v3: the rANS state; v2: the code word
+    low = torch.zeros_like(x)
+    rng = torch.full_like(x, _M32)
     cursor = goff.long().view(GROUPS, W.GROUP)[:, 0].clone()
     pos = lstart.long().clone()
     model = torch.zeros((LANES, 512), dtype=torch.int64, device=dev)
@@ -359,11 +478,19 @@ def decode_lanes_plain(warm, goff, lane_sz, lstart, stream, max_bits: int,
             break
         ctx = _sm_ctx(st, active)[:, None]
         p = model.gather(1, ctx)[:, 0]
-        slot, hi = x & 0xFFF, x >> 12
-        bit = ((slot >= p) & active).long()
-        x1 = torch.where(bit == 1, (4096 - p) * hi + slot - p, p * hi + slot)
-        x1 = torch.where(active, x1, x)
-        ren = active & (x1 < (1 << 16))
+        if rans:
+            slot, hi = x & 0xFFF, x >> 12
+            bit = ((slot >= p) & active).long()
+            x1 = torch.where(bit == 1, (4096 - p) * hi + slot - p,
+                             p * hi + slot)
+            x1 = torch.where(active, x1, x)
+            ren = active & (x1 < (1 << 16))
+        else:
+            bit = ((((x - low) & _M32) >= (rng >> 12) * p) & active).long()
+            low, rng = _rc_split(low, rng, p, bit, active)
+            ren = active & (rng < (1 << 16))
+            low, rng, _ = _rc_renorm(low, rng, ren)
+            x1 = x
         model.scatter_(1, ctx, torch.where(active, _adapt(p, bit), p)[:, None])
 
         ren2 = ren.view(GROUPS, W.GROUP)
@@ -396,7 +523,7 @@ def decode_lanes_plain(warm, goff, lane_sz, lstart, stream, max_bits: int,
 
 
 # ---------------------------------------------------------------------------
-# encode: host and device stages around K1 and K2
+# encode: host and device stages around K1 and K2 (v3) or K5 (v2)
 # ---------------------------------------------------------------------------
 
 def _it_bucket(max_bits: int, ti: int = TI) -> int:
@@ -464,35 +591,84 @@ def _host_prep(data: bytes):
 
 
 def _submit(prep, device):
-    """K1 + K2 on the prepared planes (asynchronous on the card)."""
+    """K1 + K2 (``RANS``) or K5 on the prepared planes (asynchronous on the
+    card).  Returns the in-flight state for :func:`_collect`."""
     planes, sizes, max_bits, _IT = prep
     planes_d = torch.as_tensor(planes).to(device)
-    probs = model_probs(planes_d, max_bits)
-    units, counts, fx = rans_encode(planes_d, probs, max_bits)
-    return units, counts, fx, sizes, max_bits
+    if RANS:
+        probs = model_probs(planes_d, max_bits)
+        return True, rans_encode(planes_d, probs, max_bits), sizes, max_bits
+    return False, rc_encode(planes_d, max_bits), sizes, max_bits
 
 
 def _collect(n: int, inflight):
-    units, counts, fx, sizes, max_bits = inflight
-    return _assemble_rans(n, units, counts, fx, sizes, max_bits)
+    """The payload of a submitted block (copies it to the host)."""
+    rans, out, sizes, max_bits = inflight
+    if rans:
+        return _assemble_rans(n, *out, sizes, max_bits)
+    return _assemble(n, *out, sizes, max_bits)
 
 
 def device_encode(data: bytes, device="cuda"):
     """Wide encode with the coder on ``device``: native lane table and
-    schedule, then K1 and K2.  Returns the payload (the native codec's
-    bytes for the same lane table), or None when the block does not take
-    the kernels or is not compressible."""
+    schedule, then K1 and K2 (or K5 when ``RANS`` is False).  Returns the
+    payload (the native codec's bytes for the same lane table), or None
+    when the block does not take the kernels or is not compressible."""
     prep = _host_prep(data)
     if prep is None:
         return None
     return _collect(len(data), _submit(prep, device))
 
 
+def device_encode_many(datas, device="cuda"):
+    """Pipelined :func:`device_encode` of several blocks: a prep thread
+    runs the native host walker (:func:`_host_prep`) of block i+1 while
+    block i's kernels run, and block i-1's payload is collected before
+    block i is submitted (a copy queued behind block i's kernels would wait
+    for them).  Returns the payloads in input order, None where a block
+    does not take the kernels.  An exception in the prep thread is raised
+    here."""
+    results: list = [None] * len(datas)
+    pending = None  # (index, in-flight state)
+    with ThreadPoolExecutor(max_workers=1) as prep_thread:
+        nxt = prep_thread.submit(_host_prep, datas[0]) if datas else None
+        for i in range(len(datas)):
+            prep = nxt.result()
+            if i + 1 < len(datas):
+                nxt = prep_thread.submit(_host_prep, datas[i + 1])
+            if pending is not None:
+                results[pending[0]] = _collect(len(datas[pending[0]]),
+                                               pending[1])
+                pending = None
+            if prep is not None:
+                pending = (i, _submit(prep, device))
+    if pending is not None:
+        results[pending[0]] = _collect(len(datas[pending[0]]), pending[1])
+    return results
+
+
+def _payload(n: int, parts, gunits, lane_sz, max_bits: int, rans: bool):
+    """The wide payload: header, lane table (when given), group unit
+    counts, then the group streams ``parts`` (device tensors of u16
+    values), joined on the device and copied to the host once.  None when
+    it is not smaller than the block."""
+    stream = torch.cat(parts).cpu().numpy().astype("<u2")
+    flags = (1 if lane_sz is not None else 0) | 2 | (4 if rans else 0)
+    payload = struct.pack("<IHHI", n, LANES, flags, max_bits)
+    if lane_sz is not None:
+        payload += np.asarray(lane_sz).astype("<u4").tobytes()
+    payload += np.asarray(gunits, dtype="<u4").tobytes()
+    payload += stream.tobytes()
+    if len(payload) >= n:
+        return None
+    return payload
+
+
 def _assemble_rans(n: int, units: torch.Tensor, counts: torch.Tensor,
                    fx: torch.Tensor, lane_sz=None, max_bits: int = 0):
-    """Payload from K2's output: per group, the warm-up pair (final state
-    hi, lo) of each live lane in lane order, then the group's units.  The
-    streams are joined on the device and cross to the host once."""
+    """v3 payload from K2's output: per group, the warm-up pair (final
+    state hi, lo) of each live lane in lane order, then the group's
+    units."""
     sizes = (np.asarray(lane_sz, dtype=np.int64) if lane_sz is not None
              else np.asarray(W.lane_sizes(n, LANES), dtype=np.int64))
     cap = int(units.shape[1])
@@ -507,17 +683,16 @@ def _assemble_rans(n: int, units: torch.Tensor, counts: torch.Tensor,
         parts.append(warm[lo:hi][live_d[lo:hi]].reshape(-1))
         parts.append(units[g, cap - cnt[g]:].long())
         gunits.append(2 * int(live[lo:hi].sum()) + cnt[g])
-    stream = torch.cat(parts).cpu().numpy().astype("<u2")
-    payload = struct.pack("<IHHI", n, LANES,
-                          (1 if lane_sz is not None else 0) | 2 | 4,
-                          max_bits)
-    if lane_sz is not None:
-        payload += sizes.astype("<u4").tobytes()
-    payload += np.asarray(gunits, dtype="<u4").tobytes()
-    payload += stream.tobytes()
-    if len(payload) >= n:
-        return None
-    return payload
+    return _payload(n, parts, gunits, lane_sz, max_bits, rans=True)
+
+
+def _assemble(n: int, units: torch.Tensor, counts: torch.Tensor,
+              lane_sz=None, max_bits: int = 0):
+    """v2 payload from K5's output: K5 already wrote each group's stream,
+    delays and warm-up included, at the head of the group's buffer."""
+    cnt = counts.cpu().tolist()
+    parts = [units[g, :cnt[g]] for g in range(GROUPS)]
+    return _payload(n, parts, cnt, lane_sz, max_bits, rans=False)
 
 
 def resident_prep(u_dev: torch.Tensor):
@@ -545,9 +720,9 @@ def resident_prep(u_dev: torch.Tensor):
 
 def submit_resident(u_dev: torch.Tensor):
     """Wide encode of a transformed block already on the device:
-    :func:`resident_prep`, then K1 and K2.  Returns the in-flight state for
-    :func:`collect_resident`, or None when the block does not take this
-    route."""
+    :func:`resident_prep`, then the kernels of :func:`_submit`.  Returns
+    the in-flight state for :func:`collect_resident`, or None when the
+    block does not take this route."""
     prep = resident_prep(u_dev)
     if prep is None:
         return None
@@ -567,7 +742,7 @@ def device_encode_resident(u_dev: torch.Tensor):
 
 
 # ---------------------------------------------------------------------------
-# decode: parse and prologue around K3
+# decode: parse and prologue around K3 and K4
 # ---------------------------------------------------------------------------
 
 def _prep(units: torch.Tensor, gunits: torch.Tensor, lane_sz: torch.Tensor,
@@ -593,15 +768,6 @@ def _prep(units: torch.Tensor, gunits: torch.Tensor, lane_sz: torch.Tensor,
             stream.to(torch.int32).reshape(GROUPS, SROWS, W.GROUP))
 
 
-def needs_v2_decode(payload: bytes) -> bool:
-    """True for a payload of the kernel route without the rANS flag: the
-    v2 range-coded format, whose decode kernel (K4) is not ported yet."""
-    if len(payload) < 12:
-        return False
-    _, L, flags, max_bits = struct.unpack_from("<IHHI", payload, 0)
-    return L == LANES and max_bits != 0 and not flags & 4
-
-
 def _dec_parse(payload: bytes):
     """Header and stream parse for the kernel decode.  Returns a dict, or
     None when the payload takes the native codec (not 1024 lanes, no bits,
@@ -610,10 +776,6 @@ def _dec_parse(payload: bytes):
     isize, L, flags, max_bits = struct.unpack_from("<IHHI", payload, 0)
     if L != LANES or max_bits == 0:
         return None
-    if needs_v2_decode(payload):
-        raise NotImplementedError(
-            "v2 wide payloads (no rANS flag) need the K4 decode kernel, "
-            "which is not ported yet")
     off = 12
     if flags & 1:
         lane_sz = np.frombuffer(payload, dtype="<u4", count=L,
@@ -632,7 +794,8 @@ def _dec_parse(payload: bytes):
     SROWS = max(1, -(-int(gunits.max()) // W.GROUP))
     upad = np.zeros(max(total, 1), dtype=np.uint16)
     upad[:total] = units
-    return {"isize": isize, "lane_sz": lane_sz, "gunits": gunits,
+    return {"rans": bool(flags & 4), "isize": isize, "lane_sz": lane_sz,
+            "gunits": gunits,
             "upad": upad, "max_bits": max_bits, "SROWS": SROWS,
             "UT": len(upad)}
 
@@ -654,9 +817,34 @@ def _dec_args(p: dict, device) -> tuple:
 
 
 def _dec_submit(p: dict, device) -> torch.Tensor:
-    """_prep + K3 for a parsed payload; returns the block u8 [n] on
-    ``device`` (asynchronous on the card)."""
-    return decode_lanes(*_dec_args(p, device))
+    """_prep + K3 (v3 payload) or K4 (v2) for a parsed payload; returns the
+    block u8 [n] on ``device`` (asynchronous on the card)."""
+    return decode_lanes(*_dec_args(p, device), rans=p["rans"])
+
+
+def _ready(out):
+    """An event recorded after the kernels that write ``out`` when it lies
+    on the card, else None."""
+    if not (isinstance(out, torch.Tensor) and out.is_cuda):
+        return None
+    ev = torch.cuda.Event()
+    ev.record(torch.cuda.current_stream(out.device))
+    return ev
+
+
+def _dec_fetch(out, ready) -> bytes:
+    """The decoded block's bytes.  On the card the copy runs on a side
+    stream into pinned memory once ``ready`` has fired, so it overlaps the
+    kernels queued after ``ready``."""
+    if ready is None:
+        return out.cpu().numpy().tobytes()
+    side = torch.cuda.Stream(out.device)
+    host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+    with torch.cuda.stream(side):
+        side.wait_event(ready)
+        host.copy_(out, non_blocking=True)
+    side.synchronize()
+    return host.numpy().tobytes()
 
 
 def device_decode_resident(payload: bytes, device="cuda"):
@@ -673,3 +861,25 @@ def device_decode(payload: bytes, device="cuda"):
     payload takes the native codec."""
     out = device_decode_resident(payload, device)
     return None if out is None else out.cpu().numpy().tobytes()
+
+
+def device_decode_many(payloads, device="cuda"):
+    """Pipelined :func:`device_decode` of several payloads: payload i is
+    parsed and its kernel submitted before payload i-1's block is copied
+    to the host (:func:`_dec_fetch`), so that copy overlaps block i's
+    kernel and at most two blocks are in flight.  Returns the blocks in
+    input order, None where a payload takes the native codec."""
+    results: list = [None] * len(payloads)
+    pending = None  # (index, block, its ready event)
+    for i, payload in enumerate(payloads):
+        parsed = _dec_parse(payload)
+        if parsed is None:
+            continue
+        out = _dec_submit(parsed, device)
+        ready = _ready(out)
+        if pending is not None:
+            results[pending[0]] = _dec_fetch(*pending[1:])
+        pending = (i, out, ready)
+    if pending is not None:
+        results[pending[0]] = _dec_fetch(*pending[1:])
+    return results

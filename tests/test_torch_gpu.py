@@ -1,5 +1,6 @@
-"""The CUDA kernels K1-K3 against their plain PyTorch versions on the card,
-at small size, and the fused -m9 -e4 -G route through them.
+"""The CUDA kernels K1-K5 against their plain PyTorch versions on the card,
+at small size, the fused -m9 -e4 -G route through them (v3 and v2 coder),
+and the pipelined many-block entry points.
 
 These tests need a CUDA device and skip without one.  tests/conftest.py
 imports JAX, which a GPU machine need not have, so run them there with
@@ -112,8 +113,46 @@ def test_decode_kernel_equals_plain_and_input(cuda, case):
     assert ours.cpu().numpy().tobytes() == data
 
 
-def test_fused_route_goes_through_the_kernels(cuda, monkeypatch):
+def test_rc_encode_kernel_equals_plain_and_native(cuda, case):
+    data, planes, sizes, max_bits = case
+    planes_d = torch.from_numpy(planes).to(cuda)
+    before = WK.LAUNCHES["wide_rc_encode"]
+    units, counts = WK.rc_encode(planes_d, max_bits)
+    torch.cuda.synchronize()
+    assert WK.LAUNCHES["wide_rc_encode"] == before + 1
+    p_units, p_counts = WK.rc_encode_plain(planes_d, max_bits, units.shape[1])
+    assert torch.equal(counts, p_counts)
+    for g, c in enumerate(counts.tolist()):
+        assert torch.equal(units[g, :c], p_units[g, :c])
+    payload = WK._assemble(len(data), units, counts, sizes, max_bits)
+    assert payload == W.wide_encode(data, n_lanes=WK.LANES,
+                                    balanced=sizes is not None, rans=False)
+
+
+def test_decode_v2_kernel_equals_plain_and_input(cuda, case):
+    data, _, sizes, _ = case
+    payload = W.wide_encode(data, n_lanes=WK.LANES,
+                            balanced=sizes is not None, rans=False)
+    parsed = WK._dec_parse(payload)
+    assert not parsed["rans"]
+    args = WK._dec_args(parsed, cuda)
+    before = dict(WK.LAUNCHES)
+    ours = WK.decode_lanes(*args, rans=False)
+    torch.cuda.synchronize()
+    assert WK.LAUNCHES["wide_decode_v2"] == before["wide_decode_v2"] + 1
+    assert WK.LAUNCHES["wide_decode"] == before["wide_decode"]
+    assert torch.equal(ours, WK.decode_lanes_plain(*args, rans=False))
+    assert ours.cpu().numpy().tobytes() == data
+
+
+_V3 = ("wide_model", "wide_rans", "wide_decode")
+_V2 = ("wide_rc_encode", "wide_decode_v2")
+
+
+@pytest.mark.parametrize("rans", [True, False])
+def test_fused_route_goes_through_the_kernels(cuda, monkeypatch, rans):
     monkeypatch.setenv("TBSC_WIDE_LANES", "1024")
+    monkeypatch.setattr(WK, "RANS", rans)
     data = _text(3 << 19, 1536)
     feats = C.FEATURE_FASTMODE | C.FEATURE_CUDA
     P.init(feats, device=cuda)
@@ -121,13 +160,24 @@ def test_fused_route_goes_through_the_kernels(cuda, monkeypatch):
     blob = P.compress(data, block_sorter=C.BLOCKSORTER_BWT_WIDEAUX,
                       coder=C.CODER_QLFC_WIDE)
     assert P.decompress(blob) == data
-    assert min(WK.LAUNCHES.values()) == 1
+    ran, idle = (_V3, _V2) if rans else (_V2, _V3)
+    assert all(WK.LAUNCHES[k] == 1 for k in ran)
+    assert all(WK.LAUNCHES[k] == 0 for k in idle)
     # the resident payload is the native codec's with the device table
     native.load()
     U = torch.from_numpy(np.frombuffer(data[:1 << 20], np.uint8).copy())
     U = U.to(cuda)
     sizes = WS.device_balanced_sizes(U, WK.LANES).cpu().numpy()
     assert WK.device_encode_resident(U) == W.wide_encode(
-        U.cpu().numpy().tobytes(), n_lanes=WK.LANES, sizes=sizes, rans=True)
+        U.cpu().numpy().tobytes(), n_lanes=WK.LANES, sizes=sizes, rans=rans)
     P.init(C.FEATURE_FASTMODE, device=cuda)  # host stages only
     assert P.decompress(blob) == data
+
+
+def test_many_block_entry_points(cuda):
+    datas = [_runs(1024 * 40, s) for s in (1, 2, 3)] + [b"ab" * 300]
+    payloads = WK.device_encode_many(datas, cuda)
+    assert payloads[:3] == [WK.device_encode(d, cuda) for d in datas[:3]]
+    assert payloads[3] is None
+    blocks = WK.device_decode_many(payloads[:3] + [b"\0" * 16], cuda)
+    assert blocks == datas[:3] + [None]

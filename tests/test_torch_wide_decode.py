@@ -1,6 +1,6 @@
 """Wide decode with K3 (plain version on the CPU) against the JAX package's
-decode kernel in interpret mode, and the stream prologue against its
-_prep_call."""
+decode kernel in interpret mode, the stream prologue against its
+_prep_call, and the payloads outside the v3 kernel route."""
 
 import struct
 
@@ -82,18 +82,14 @@ def _v2_archive(d: bytes) -> bytes:
 def test_payloads_outside_the_kernel_route():
     d = (b"a" * 50 + b"b" * 30 + b"c" * 7) * 1000
     p128 = pwide.wide_encode(d, n_lanes=128)
+    assert p128 is not None
     assert pwk.device_decode(p128, device="cpu") is None  # not 1024 lanes
-    p_v2 = jwide.wide_encode(d, n_lanes=1024, rans=False)
-    assert p128 is not None and p_v2 is not None
-    assert pwk.needs_v2_decode(p_v2) and not pwk.needs_v2_decode(p128)
-    # the device route refuses a v2 payload with NOT_SUPPORTED; the host
-    # route decodes it with the native codec
+    # a v2 payload (no rANS flag) takes K4 on the device route, and the
+    # native codec on the host route
     archive = _v2_archive(d)
     try:
         api.init(C.FEATURE_CUDA, device="cpu")
-        with pytest.raises(api.BscError) as err:
-            api.decompress(archive)
-        assert err.value.code == C.NOT_SUPPORTED
+        assert api.decompress(archive) == d
         api.init(0, device="cpu")
         assert api.decompress(archive) == d
     finally:

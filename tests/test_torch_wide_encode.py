@@ -41,7 +41,8 @@ def test_device_encode_stages_on_a_native_table(corpus):
     planes, sizes, max_bits, IT = prep
     assert planes.shape == (IT // 4, pwk.LANES) and IT >= max_bits
     assert sizes is not None and int(sizes.sum()) == len(corpus)
-    units, counts, fx = pwk._submit(prep, "cpu")[:3]
+    rans, (units, counts, fx), _, _ = pwk._submit(prep, "cpu")
+    assert rans  # K1 + K2, the default coder
     assert units.shape == (pwk.GROUPS, 128 * max_bits)
     assert int(counts.sum()) > 0 and fx.dtype.is_signed
 
