@@ -31,13 +31,35 @@ Phases, one line or more each:
   5. many blocks: three other 25 MiB blocks of the corpus, each after the
      port's device BWT, through device_encode_many (each payload must
      equal device_encode of its block) and device_decode_many (each block
-     must come back); prints the sustained MB/s.
+     must come back); prints the sustained MB/s;
+  6. the sharded transform step on a one-GPU mesh (make_mesh(1) on
+     cuda:0) over a local batch of two 25 MiB blocks of that corpus, with
+     sorter="bwt" and with sorter="st", k=5: U and the primary must equal
+     the native tbsc_bwt_encode, ops/bwt.bwt_encode's aux the native aux
+     indexes, the ST output and index the native tbsc_st_encode, the
+     histograms torch.bincount; K6 must launch once a block in each step.
+     The ST outputs, coded by the native QLFC static coder and framed with
+     no aux indexes, must come back through api.decompress.  K7's
+     adler32_device of each device-resident block must equal the host
+     Adler-32.  Prints each step's wall time and MB/s;
+  7. the -m5 -G path: the 25 MiB block through api.compress with
+     BLOCKSORTER_ST5 + CODER_QLFC_STATIC and FEATURE_CUDA (the ST sorts on
+     the card); the archive must equal the host-ST archive byte for byte
+     and api.decompress must restore it.  Prints encode and decode MB/s.
+
+Phase 2 also holds K6 (byte histogram) and K7 (Adler-32 partials) against
+their plain versions on the 4 MiB check block, an all-zero 4 MiB block and
+an odd-length view at an odd offset, exactly, and times them (in a CUDA
+graph, so that a call of microseconds is not timed by its dispatch), their
+plain versions and K6's library call (torch.bincount) on the 25 MiB block,
+each launch on one of four copies in turn so that its input is not in the
+50 MB L2 cache.
 
 The script prints a JSON line of per-kernel numbers (launches from the
-main path that runs the kernel: K1-K3 phase 3, K4 and K5 phase 4), the
-nvidia-smi line, and, last, {"ok": true, "device": ...} only when every
-phase passed.  It exits non-zero without CUDA or outside a checkout of the
-repository.
+main path that runs the kernel: K1-K3 phase 3, K4 and K5 phase 4, K6 and
+K7 phase 6), the nvidia-smi line, and, last, {"ok": true, "device": ...}
+only when every phase passed.  It exits non-zero without CUDA or outside
+a checkout of the repository.
 
 Each kernel's bound_ms is the larger of its bytes (each input read once,
 each output written once; for the encode kernels the max_bits rows of
@@ -52,6 +74,7 @@ of dependent instructions.
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import struct
@@ -67,13 +90,18 @@ STEP_CYCLES = 4              # latency of one dependent integer instruction
 BLOCK = 25 << 20             # bsc's default block size, -b25
 PLAIN_BLOCK = 4 << 20        # phase 2's check block
 MANY_BLOCKS = 3
+STEP_BLOCKS = 2              # phase 6's local batch
 TIMED_LAUNCHES = 5
+STATS_LAUNCHES = 40          # K6 and K7 take microseconds a launch
+COLD_COPIES = 4              # 4 x 25 MiB exceeds the 50 MB L2 cache
 REPLACES = {  # kernel -> the Pallas kernel it replaces
     "wide_model": "libbsc_tpu/ops/wide_kernels.py:546",
     "wide_rans": "libbsc_tpu/ops/wide_kernels.py:749",
     "wide_rc_encode": "libbsc_tpu/ops/wide_kernels.py:432",
     "wide_decode": "libbsc_tpu/ops/wide_kernels.py:1729",
     "wide_decode_v2": "libbsc_tpu/ops/wide_kernels.py:1729",
+    "byte_hist": "libbsc_tpu/ops/pallas_kernels.py:64",
+    "adler_partials": "libbsc_tpu/ops/pallas_kernels.py:100",
 }
 V3 = ("wide_model", "wide_rans", "wide_decode")
 V2 = ("wide_rc_encode", "wide_decode_v2")
@@ -131,6 +159,33 @@ def cuda_ms(fn, reps: int) -> float:
     start.record()
     for _ in range(reps):
         fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Mean device milliseconds of fn() over reps calls captured in one
+    CUDA graph.  The replay launches the captured kernels back to back
+    with no host work between them, so a call that takes microseconds is
+    timed on the device, not by how fast Python dispatches it."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capture
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
@@ -495,6 +550,258 @@ def breakdown(data: bytes, features: int, archive: bytes, device) -> dict:
     return ms
 
 
+def check_stats(data: bytes, device) -> dict:
+    """Phase 2 check of K6 and K7: each against its plain version on the
+    4 MiB check block, an all-zero block of that size and a view of odd
+    length at an odd offset, exactly (integer counts); the Adler-32 from
+    K7's partials against the host's on each."""
+    import torch
+
+    from libbsc_tpu_torch.ops import stats_kernels as S
+    from libbsc_tpu_torch.utils.adler32 import adler32
+
+    block = torch.from_numpy(np.frombuffer(data[:PLAIN_BLOCK], np.uint8)
+                             .copy()).to(device)
+    cases = {"block": block,
+             "zeros": torch.zeros(PLAIN_BLOCK, dtype=torch.uint8,
+                                  device=device),
+             "odd": block[3:3 + PLAIN_BLOCK - 3]}
+    out = {}
+    for name, kernel, plain in (
+            ("byte_hist", S.byte_histogram, S.byte_histogram_plain),
+            ("adler_partials", S._adler_partials, S._adler_partials_plain)):
+        for case, x in cases.items():
+            err = int((kernel(x).long() - plain(x).long()).abs().max())
+            if err:
+                fail(f"{name} differs from its plain version by {err} on "
+                     f"the {case} block")
+        out[name] = {"max_abs_err": 0}
+        print(f"phase 2 check {name}: equal to plain on the 4 MiB block, "
+              f"an all-zero 4 MiB block and {PLAIN_BLOCK - 3} bytes at "
+              "offset 3", flush=True)
+    for case, x in cases.items():
+        if S.adler32_device(x) != adler32(x.cpu().numpy()):
+            fail(f"adler32_device differs from the host on the {case} block")
+    return out
+
+
+def time_stats(data: bytes, device) -> list:
+    """Phase 2 time of K6 and K7 on the 25 MiB block, beside their plain
+    versions and K6's library call (torch.bincount).  The kernels' wrappers
+    are timed in a CUDA graph (graph_ms: the device time of a wrapper's
+    work, K6's 1 KiB zero fill included) and, for comparison, with CUDA
+    events around back-to-back Python calls (cuda_ms: what a caller waits,
+    dispatch included).  The plain versions and torch.bincount synchronise
+    with the host inside a call (bincount reads the input's maximum), so
+    they cannot be captured and are timed with events.  Each launch reads
+    one of COLD_COPIES copies in turn, so its input is not in L2, as it
+    would not be for a block that just arrived."""
+    import torch
+
+    from libbsc_tpu_torch.ops import stats_kernels as S
+
+    n = len(data)
+    x = torch.from_numpy(np.frombuffer(data, np.uint8).copy()).to(device)
+    copies = [x] + [x.clone() for _ in range(COLD_COPIES - 1)]
+
+    def rotating(fn):
+        turn = itertools.cycle(copies)
+        return lambda: fn(next(turn))
+
+    n_chunks = -(-n // S._ADLER_CHUNK)
+    runs = {
+        "byte_hist": (S.byte_histogram, S.byte_histogram_plain,
+                      lambda t: torch.bincount(t, minlength=256),
+                      n + 4 * 256, n),
+        "adler_partials": (S._adler_partials, S._adler_partials_plain, None,
+                           n + 8 * n_chunks, 2 * n),
+    }
+    rows = []
+    for name, (kernel, plain, library, nbytes, ops) in runs.items():
+        if not torch.equal(kernel(x).long(), plain(x).long()):
+            fail(f"{name} differs from its plain version on the 25 MiB "
+                 "block")
+        ms = graph_ms(rotating(kernel), STATS_LAUNCHES)
+        call_ms = cuda_ms(rotating(kernel), STATS_LAUNCHES)
+        plain_ms = cuda_ms(rotating(plain), STATS_LAUNCHES)
+        lib_ms = None if library is None else cuda_ms(rotating(library),
+                                                      STATS_LAUNCHES)
+        b, by = bound_ms(nbytes, ops)
+        if name == "byte_hist":  # skew: every lane of a warp on one bin
+            zeros = [torch.zeros_like(x) for _ in range(COLD_COPIES)]
+            turn = itertools.cycle(zeros)
+            zero_ms = graph_ms(lambda: kernel(next(turn)), STATS_LAUNCHES)
+            print(f"phase 2 time byte_hist on an all-zero block: "
+                  f"{zero_ms:.4f} ms (graph), {n} bytes", flush=True)
+            del zeros, turn
+        rows.append({"name": name, "route": "cuda",
+                     "source": f"libbsc_tpu_torch/csrc/{name}.cu",
+                     "replaces": REPLACES[name], "ms": ms,
+                     "call_ms": call_ms,
+                     "plain_ms": plain_ms, "plain_at_bytes": n,
+                     "bound_ms": b, "bound_by": by, "library_ms": lib_ms})
+        lib = "" if lib_ms is None else f", torch.bincount {lib_ms:.4f} ms"
+        print(f"phase 2 time {name}: {ms:.4f} ms in a graph, {call_ms:.4f}"
+              f" ms a Python call (bound {b:.4f} ms by {by}), plain "
+              f"{plain_ms:.4f} ms{lib}, {n} bytes", flush=True)
+    return rows
+
+
+def transform_step(blocks: list, features: int, device) -> dict:
+    """Phase 6: the sharded transform step on a one-GPU mesh, both
+    sorters, held against the native sorters; the ST leg's archive through
+    api.decompress; K7 on the device-resident blocks.  Returns the launch
+    counts of K6 and K7, set to 0 at the start of the phase."""
+    import torch
+
+    import libbsc_tpu_torch as P
+    from libbsc_tpu_torch import constants as C
+    from libbsc_tpu_torch import engine
+    from libbsc_tpu_torch.format.header import pack_block_header, pack_mode
+    from libbsc_tpu_torch.ops import bwt
+    from libbsc_tpu_torch.ops import stats_kernels as S
+    from libbsc_tpu_torch.parallel import (make_mesh, make_transform_step,
+                                           shard, unshard)
+    from libbsc_tpu_torch.utils.adler32 import adler32
+
+    host = [np.frombuffer(b, np.uint8) for b in blocks]
+    mesh = make_mesh(1)
+    grid = shard(torch.from_numpy(np.stack(host)), mesh)
+    if grid[0][0].device != device:
+        fail(f"make_mesh(1) is not on {device}")
+    mb = sum(map(len, blocks)) / 1e6
+    S.reset_launches()
+    st_out = None
+    for sorter in ("bwt", "st"):
+        before = S.LAUNCHES["byte_hist"]
+        (out, idx, hist), ms = timed(
+            lambda: make_transform_step(mesh, sorter=sorter, k=5)(grid))
+        if S.LAUNCHES["byte_hist"] - before != len(blocks):
+            fail(f"step {sorter}: K6 launched "
+                 f"{S.LAUNCHES['byte_hist'] - before} times for "
+                 f"{len(blocks)} blocks")
+        out, idx, hist = unshard(out), unshard(idx), unshard(hist)
+        for b, ref in enumerate(host):
+            ref = ref.copy()
+            if sorter == "bwt":
+                primary, ni, indexes = engine.bwt_encode(ref, features)
+                _, _, aux = bwt.bwt_encode(grid[0][0][b])
+                if not np.array_equal(aux.cpu().numpy(), indexes[:ni]):
+                    fail(f"step bwt: block {b}'s aux differs from native")
+            else:
+                primary = engine.st_encode(ref, 5, features)
+            if out[b].numpy().tobytes() != ref.tobytes() \
+                    or int(idx[b]) != primary:
+                fail(f"step {sorter}: block {b} differs from the native "
+                     "sorter")
+            if not torch.equal(hist[b].to(device).long(), torch.bincount(
+                    grid[0][0][b], minlength=256)):
+                fail(f"step {sorter}: block {b}'s histogram is wrong")
+        if sorter == "st":
+            st_out, st_idx = out.numpy(), idx
+        print(f"phase 6 step {sorter}: {len(blocks)} blocks of "
+              f"{len(blocks[0])} bytes, {ms:.1f} ms, {mb / ms * 1e3:.2f} "
+              "MB/s, equal to the native sorter", flush=True)
+    mode = pack_mode(C.BLOCKSORTER_ST5, C.CODER_QLFC_STATIC, 0, 0)
+    P.init(features, device=device)
+    for b, raw in enumerate(blocks):
+        payload = engine.coder_compress(st_out[b].copy(),
+                                        C.CODER_QLFC_STATIC, features)
+        if payload is None:
+            fail(f"step st: block {b} does not compress")
+        payload = bytes(payload) + bytes([0])  # num_indexes = 0
+        archive = pack_block_header(len(payload) + C.HEADER_SIZE, len(raw),
+                                    mode, int(st_idx[b]), adler32(raw),
+                                    adler32(payload)) + payload
+        if P.decompress(archive) != raw:
+            fail(f"step st: api.decompress did not restore block {b}")
+    for b, raw in enumerate(blocks):
+        if S.adler32_device(grid[0][0][b]) != adler32(raw):
+            fail(f"adler32_device differs from the host on block {b}")
+    launches = dict(S.LAUNCHES)
+    if launches["adler_partials"] != len(blocks):
+        fail(f"K7 did not launch once a block: {launches}")
+    print(f"phase 6 archives: the ST outputs decode through api.decompress;"
+          f" adler32_device equals the host; launches {launches}",
+          flush=True)
+    return launches
+
+
+def st_device_path(data: bytes, features: int, device) -> None:
+    """Phase 7: -m5 -G, the ST on the card; the archive must be the host
+    ST's and must decode."""
+    import torch
+
+    import libbsc_tpu_torch as P
+    from libbsc_tpu_torch import constants as C
+
+    kw = dict(lzp_hash_size=C.DEFAULT_LZPHASHSIZE,
+              lzp_min_len=C.DEFAULT_LZPMINLEN,
+              block_sorter=C.BLOCKSORTER_ST5, coder=C.CODER_QLFC_STATIC)
+    P.init(features, device=device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    archive, t_enc = timed(lambda: P.compress(data, **kw))
+    peak = torch.cuda.max_memory_allocated()
+    back, t_dec = timed(lambda: P.decompress(archive))
+    P.init(features & ~C.FEATURE_CUDA, device=device)
+    host, t_host = timed(lambda: P.compress(data, **kw))
+    if peak == 0:
+        fail("-m5 -G: the ST did not run on the card")
+    if archive != host:
+        fail("-m5 -G: the archive differs from the host-ST archive")
+    if back != data:
+        fail("-m5 -G: api.decompress did not restore the block")
+    mb = len(data) / 1e6
+    print(f"phase 7 -m5 -G: {len(data)} -> {len(archive)} bytes, equal to "
+          f"the host-ST archive; encode {mb / t_enc * 1e3:.2f} MB/s "
+          f"({t_enc:.1f} ms; host ST {mb / t_host * 1e3:.2f} MB/s), decode "
+          f"{mb / t_dec * 1e3:.2f} MB/s ({t_dec:.1f} ms), peak device "
+          f"memory {peak} B", flush=True)
+    st_breakdown(data, kw, archive, features, device)
+
+
+def st_breakdown(data: bytes, kw: dict, archive: bytes, features: int,
+                 device) -> None:
+    """Wall milliseconds of each stage of phase 7's encode and decode,
+    each ending in a device synchronize; the stages must compose the
+    archive's payload and restore the block."""
+    from libbsc_tpu_torch import constants as C
+    from libbsc_tpu_torch import engine
+
+    ms = {}
+
+    def stage(name, fn):
+        out, ms[name] = timed(fn)
+        return out
+
+    hs, ml = kw["lzp_hash_size"], kw["lzp_min_len"]
+    lz = stage("lzp", lambda: engine.lzp_compress(
+        np.frombuffer(data, np.uint8), hs, ml, features))
+    lzp = lz is not None
+    if not lzp:  # LZP does not pay: the block goes on unchanged
+        lz = np.frombuffer(data, np.uint8).copy()
+    dev_lz, host_lz = lz.copy(), lz.copy()
+    index = stage("st_device", lambda: engine.st_encode(
+        dev_lz, 5, features, device))
+    stage("st_host", lambda: engine.st_encode(host_lz, 5, features))
+    payload = stage("qlfc", lambda: engine.coder_compress(
+        dev_lz, C.CODER_QLFC_STATIC, features))
+    if payload is None or bytes(payload) + b"\0" != \
+            archive[C.HEADER_SIZE:] or not np.array_equal(dev_lz, host_lz):
+        fail("-m5 -G: the timed stages do not compose the archive")
+    out = stage("unqlfc", lambda: engine.coder_decompress(
+        payload, C.CODER_QLFC_STATIC, features, capacity=len(data) + 4096))
+    stage("unst", lambda: engine.st_decode(out, 5, index, features))
+    if lzp:
+        out = stage("unlzp", lambda: engine.lzp_decompress(
+            out, hs, ml, features, capacity=len(data) + 4096))
+    if out.tobytes() != data:
+        fail("-m5 -G: the timed stages did not restore the block")
+    print("phase 7 stages (ms): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in ms.items()), flush=True)
+
+
 def main() -> int:
     try:
         import torch
@@ -534,8 +841,10 @@ def main() -> int:
     data = make_corpus(BLOCK)
     checked = check_kernels(stages(data[:PLAIN_BLOCK], features, device),
                             device)
+    checked.update(check_stats(data, device))
     st = stages(data, features, device)
     rows = time_kernels(st, device, clock_mhz)
+    stats_rows = time_stats(data, device)
     composed = st["archive"]
     del st
     torch.cuda.empty_cache()
@@ -548,10 +857,16 @@ def main() -> int:
     corpus = make_corpus(MANY_BLOCKS * BLOCK)
     many([corpus[i * BLOCK:(i + 1) * BLOCK] for i in range(MANY_BLOCKS)],
          device)
+    launches.update(transform_step(
+        [corpus[i * BLOCK:(i + 1) * BLOCK] for i in range(STEP_BLOCKS)],
+        features, device))
+    st_device_path(data, features, device)
     for r in rows:
         r.update(checked[r["name"]], launches=launches[r["name"]],
                  plain_at_bytes=PLAIN_BLOCK)
-    print(json.dumps({"kernels": rows}))
+    for r in stats_rows:
+        r.update(checked[r["name"]], launches=launches[r["name"]])
+    print(json.dumps({"kernels": rows + stats_rows}))
     print(smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

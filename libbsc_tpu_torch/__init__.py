@@ -2,11 +2,14 @@
 NVIDIA H100.
 
 This package imports torch and numpy, never JAX, and nothing of
-``libbsc_tpu``.  It writes the same archives.  Its first slice covers the
-main path, ``BLOCKSORTER_BWT_WIDEAUX`` + ``CODER_QLFC_WIDE`` with
-``FEATURE_CUDA`` (CLI ``-m9 -e4 -G``): host LZP, the device wide-aux BWT,
-the device lane balancer and bit schedule, and three hand-written CUDA
-kernels (model, rANS encode, wide decode) in ``csrc/``.
+``libbsc_tpu``.  It writes the same archives, for every block sorter (BWT,
+BWT_WIDEAUX, ST3-ST8) and coder (QLFC static, adaptive, fast, wide).  On
+the card run the main path, ``BLOCKSORTER_BWT_WIDEAUX`` +
+``CODER_QLFC_WIDE`` with ``FEATURE_CUDA`` (CLI ``-m9 -e4 -G``: the device
+wide-aux BWT, lane balancer and bit schedule, and the wide-coder kernels
+K1-K5 in ``csrc/``), the device ST of ``-G`` (``ops/st.py``), and the
+sharded transform step (``parallel/``) with the statistics kernels K6 and
+K7 (``ops/stats_kernels.py``).
 
 Entry points run on the card unless the caller passes ``device="cpu"`` to
 :func:`init`; then each kernel's plain PyTorch version runs instead.

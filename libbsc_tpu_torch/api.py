@@ -1,14 +1,19 @@
 """Public compression API (bsc_init / compress / store / block_info /
-decompress) for the configurations this port covers.
+decompress) for every block sorter (BWT, BWT_WIDEAUX, ST3-ST8) and coder
+(QLFC static, adaptive, fast, wide).
 
-This slice covers ``BLOCKSORTER_BWT_WIDEAUX`` + ``CODER_QLFC_WIDE`` (CLI
-``-m9 -e4``).  With ``FEATURE_CUDA`` (``-G``) a block of 1 MiB or more
-that gets 1024 lanes takes the fused device route; otherwise blocks take
-the per-stage route: host wide-aux BWT, then K1/K2 on the device for
-1024-lane blocks or the native codec for other lane counts.  These are
-the JAX package's routing conditions (its api.py:164-246 and :309-327),
-so both packages write the same archive for the same input.  Other
-sorters and coders raise ``BscError(NOT_SUPPORTED)``.
+Routing follows the JAX package's api.py (encode :180-229, decode
+:309-368 and :395-415), so both packages write the same archive for the
+same input.  With ``FEATURE_CUDA`` (``-G``):
+- ``BLOCKSORTER_BWT_WIDEAUX`` + ``CODER_QLFC_WIDE``, a block of 1 MiB or
+  more that gets 1024 lanes, takes the fused device route (device wide-aux
+  BWT, schedule and coder kernels); otherwise the wide coder runs K1/K2
+  on the device for 1024-lane blocks and the native codec for others;
+- ST3-ST8 blocks of 1 MiB or more sort on the device
+  (``engine.st_encode``); smaller ones, and every BWT, sort on the host,
+  as in the JAX package, whose device BWT needs an environment opt-in.
+The QLFC static, adaptive and fast coders, the host BWT and the inverse
+ST run on the port's native runtime.
 
 ``init(features, device=None)`` chooses the device: ``None`` means
 ``cuda``, which must be present; ``device="cpu"`` runs every kernel's
@@ -100,13 +105,6 @@ def block_info(block_header: bytes):
     return h.block_size, h.data_size
 
 
-def _check_supported(block_sorter: int, coder: int) -> None:
-    if block_sorter != C.BLOCKSORTER_BWT_WIDEAUX or coder != C.CODER_QLFC_WIDE:
-        raise BscError(C.NOT_SUPPORTED,
-                       "this port covers BLOCKSORTER_BWT_WIDEAUX + "
-                       "CODER_QLFC_WIDE only")
-
-
 def compress(data: bytes, lzp_hash_size: int = C.DEFAULT_LZPHASHSIZE,
              lzp_min_len: int = C.DEFAULT_LZPMINLEN,
              block_sorter: int = C.DEFAULT_BLOCKSORTER,
@@ -118,7 +116,6 @@ def compress(data: bytes, lzp_hash_size: int = C.DEFAULT_LZPHASHSIZE,
     mode = pack_mode(block_sorter, coder, lzp_hash_size, lzp_min_len)
     if mode < 0:
         raise BscError(C.BAD_PARAMETER, "invalid mode configuration")
-    _check_supported(block_sorter, coder)
     n = len(data)
     if n > C.MAX_COMPRESS_SIZE:
         raise BscError(C.BAD_PARAMETER, "input too large")
@@ -141,31 +138,40 @@ def compress(data: bytes, lzp_hash_size: int = C.DEFAULT_LZPHASHSIZE,
         block_sorter = C.BLOCKSORTER_BWT
         mode = (mode & ~0x1F) | C.BLOCKSORTER_BWT
 
-    lanes = wide.pick_lanes_policy(len(lz))
     payload = None
     wideaux_r = None
-    if (block_sorter == C.BLOCKSORTER_BWT_WIDEAUX and device is not None
-            and lanes == wide.DEFAULT_LANES):
+    if (block_sorter == C.BLOCKSORTER_BWT_WIDEAUX
+            and coder == C.CODER_QLFC_WIDE and device is not None
+            and wide.pick_lanes_policy(len(lz)) == wide.DEFAULT_LANES):
         fused = engine.compress_block_device(lz, device)
         if fused is not None:
             index, num_indexes, indexes, wideaux_r, payload = fused
 
-    if payload is None:  # per-stage route
+    if payload is None:  # per-stage route: the sorter, then the coder
         if block_sorter == C.BLOCKSORTER_BWT:
             index, num_indexes, indexes = engine.bwt_encode(lz, features)
-        else:
+        elif block_sorter == C.BLOCKSORTER_BWT_WIDEAUX:
             index, num_indexes, indexes, wideaux_r = \
                 engine.bwt_encode_wideaux(lz)
+        elif C.BLOCKSORTER_ST3 <= block_sorter <= C.BLOCKSORTER_ST8:
+            index = engine.st_encode(lz, block_sorter, features, device)
+            num_indexes, indexes = 0, None
+        else:
+            _raise(C.BAD_PARAMETER)
         if index < 0:
             _raise(index)
         if n < 64 * 1024 and wideaux_r is None:
             num_indexes = 0
-        if lanes == wide.DEFAULT_LANES and device is not None:
-            from .ops import wide_kernels
+        if coder == C.CODER_QLFC_WIDE:
+            lanes = wide.pick_lanes_policy(len(lz))
+            if lanes == wide.DEFAULT_LANES and device is not None:
+                from .ops import wide_kernels
 
-            payload = wide_kernels.device_encode(lz.tobytes(), device)
-        if payload is None:
-            payload = wide.wide_encode(lz.tobytes(), n_lanes=lanes)
+                payload = wide_kernels.device_encode(lz.tobytes(), device)
+            if payload is None:
+                payload = wide.wide_encode(lz.tobytes(), n_lanes=lanes)
+        else:
+            payload = engine.coder_compress(lz, coder, features)
 
     tail_len = (5 if wideaux_r is not None else 1) + 4 * num_indexes
     if payload is None or len(payload) + tail_len >= n:
@@ -186,7 +192,7 @@ def compress(data: bytes, lzp_hash_size: int = C.DEFAULT_LZPHASHSIZE,
 
 
 def _decode_to_sorter(block: bytes, expected_size: int | None):
-    """Header and Adler checks, then the wide decode; stops before the
+    """Header and Adler checks, then the entropy decode; stops before the
     sorter.  Returns the stored bytes or the state for the sorter."""
     h = parse_block_header(block)
     if isinstance(h, int):
@@ -203,12 +209,6 @@ def _decode_to_sorter(block: bytes, expected_size: int | None):
 
     coder = (h.mode >> 5) & 0x7
     block_sorter = h.mode & 0x1F
-    # BLOCKSORTER_BWT appears only where the LZP output was at most a
-    # header long (see compress)
-    if coder != C.CODER_QLFC_WIDE or block_sorter not in (
-            C.BLOCKSORTER_BWT, C.BLOCKSORTER_BWT_WIDEAUX):
-        raise BscError(C.NOT_SUPPORTED, "this port decodes "
-                       "BLOCKSORTER_BWT_WIDEAUX + CODER_QLFC_WIDE only")
     device = _device_route(_state["features"])
 
     if block_sorter == C.BLOCKSORTER_BWT_WIDEAUX:
@@ -229,21 +229,32 @@ def _decode_to_sorter(block: bytes, expected_size: int | None):
 
     lz = None
     sorted_done = False
-    if block_sorter == C.BLOCKSORTER_BWT_WIDEAUX and device is not None:
-        (tsize,) = struct.unpack_from("<I", payload, 0)
-        out = engine.decompress_block_device(
-            payload, h.index, indexes, engine.wideaux_rate(int(tsize)),
-            int(tsize), device)
-        if out is not None:
-            lz, sorted_done = out, True
-    if lz is None and device is not None:
-        from .ops import wide_kernels
+    if coder == C.CODER_QLFC_WIDE:
+        if block_sorter == C.BLOCKSORTER_BWT_WIDEAUX and device is not None:
+            (tsize,) = struct.unpack_from("<I", payload, 0)
+            out = engine.decompress_block_device(
+                payload, h.index, indexes, engine.wideaux_rate(int(tsize)),
+                int(tsize), device)
+            if out is not None:
+                lz, sorted_done = out, True
+        if lz is None and device is not None:
+            from .ops import wide_kernels
 
-        out = wide_kernels.device_decode(payload, device)
-        if out is not None:
-            lz = np.frombuffer(out, dtype=np.uint8).copy()
-    if lz is None:
-        lz = np.frombuffer(wide.wide_decode(payload), dtype=np.uint8).copy()
+            out = wide_kernels.device_decode(payload, device)
+            if out is not None:
+                lz = np.frombuffer(out, dtype=np.uint8).copy()
+        if lz is None:
+            lz = np.frombuffer(wide.wide_decode(payload),
+                               dtype=np.uint8).copy()
+    else:
+        lz = engine.coder_decompress(np.frombuffer(payload, dtype=np.uint8),
+                                     coder, _state["features"],
+                                     capacity=h.data_size + 4096)
+        if isinstance(lz, int):
+            _raise(lz)
+    if not (block_sorter in (C.BLOCKSORTER_BWT, C.BLOCKSORTER_BWT_WIDEAUX)
+            or C.BLOCKSORTER_ST3 <= block_sorter <= C.BLOCKSORTER_ST8):
+        _raise(C.DATA_CORRUPT)
     return {"h": h, "lz": lz, "sorter": block_sorter, "sorted": sorted_done,
             "num_indexes": num_indexes, "indexes": indexes,
             "lzp_hash_size": (h.mode >> 16) & 0xFF,
@@ -257,10 +268,12 @@ def _run_sorter(st) -> None:
     if st["sorter"] == C.BLOCKSORTER_BWT:
         rc = engine.bwt_decode(lz, h.index, st["num_indexes"], st["indexes"],
                                _state["features"])
-    else:
+    elif st["sorter"] == C.BLOCKSORTER_BWT_WIDEAUX:
         rc = engine.bwt_decode_wideaux(
             lz, h.index, st["num_indexes"], st["indexes"],
             engine.wideaux_rate(len(lz)), st["device"])
+    else:
+        rc = engine.st_decode(lz, st["sorter"], h.index, _state["features"])
     if rc < 0:
         _raise(rc)
 

@@ -1,5 +1,5 @@
-"""Stage functions of the main path: host LZP and wide-aux BWT on the
-native runtime, and the fused device stages.
+"""Stage functions: host LZP, BWT, ST and QLFC coders on the native
+runtime, the device ST route, and the fused device stages of the main path.
 
 The fused encode (:func:`compress_block_device`) copies the LZP'd block to
 the device once and runs the wide-aux BWT, the lane balancer, the bit
@@ -80,6 +80,67 @@ def bwt_decode(data: np.ndarray, index: int, num_indexes: int, indexes,
     return lib.tbsc_bwt_decode(native.u8p(data), len(data), index,
                                num_indexes, native.i32p(idx),
                                num_threads(features))
+
+
+def st_encode(data: np.ndarray, k: int, features: int, device=None) -> int:
+    """Forward ST-k in place.  Returns the index or a negative error code.
+
+    With ``device`` (the FEATURE_CUDA route) a block of 1 MiB or more is
+    sorted there by ``ops/st.st_encode`` at its own length; others take
+    the native runtime.  The JAX package pads the block to a size bucket
+    and serialises the first call of each (bucket, k), because XLA
+    compiles a program per shape; torch compiles nothing per shape, so
+    there is neither here.  A device failure raises: there is no silent
+    host fallback."""
+    n = len(data)
+    if device is not None and n >= _DEVICE_MIN_BLOCK:
+        from .ops import st as opsst
+
+        out, index = opsst.st_encode(
+            torch.from_numpy(_as_c(data)).to(device), k)
+        data[:] = out.cpu().numpy()
+        return int(index)
+    lib = native.load()
+    buf = _as_c(data)
+    rc = lib.tbsc_st_encode(native.u8p(buf), n, k, num_threads(features))
+    if rc >= 0 and buf is not data:
+        data[:] = buf
+    return rc
+
+
+def st_decode(data: np.ndarray, k: int, index: int, features: int) -> int:
+    """Inverse ST-k in place on the native runtime (a serial chase: no
+    device route, as in the JAX package).  Returns 0 or an error code."""
+    lib = native.load()
+    buf = _as_c(data)
+    rc = lib.tbsc_st_decode(native.u8p(buf), len(data), k, index,
+                            num_threads(features))
+    if rc == 0 and buf is not data:
+        data[:] = buf
+    return rc
+
+
+def coder_compress(data: np.ndarray, coder: int, features: int):
+    """QLFC static, adaptive or fast encode on the native runtime.  The
+    payload as ndarray, or None if not compressible."""
+    lib = native.load()
+    inp = _as_c(data)
+    out = np.empty(len(inp) + 4096, dtype=np.uint8)
+    rc = lib.tbsc_coder_compress(native.u8p(inp), native.u8p(out), len(inp),
+                                 coder, num_threads(features))
+    return None if rc < 0 else out[:rc]
+
+
+def coder_decompress(data: np.ndarray, coder: int, features: int,
+                     capacity: int):
+    """QLFC decode on the native runtime.  The decoded bytes as ndarray,
+    or a negative error code."""
+    lib = native.load()
+    inp = _as_c(data)
+    out = np.empty(int(capacity), dtype=np.uint8)
+    rc = lib.tbsc_coder_decompress(native.u8p(inp), native.u8p(out), coder,
+                                   num_threads(features))
+    return rc if rc < 0 else out[:rc]
 
 
 def wideaux_rate(n: int) -> int:

@@ -2,7 +2,8 @@
 
 The C++ sources in this directory are the same as the JAX package's, so the
 host stages (LZP, the wide-aux BWT, the wide codec, its lane balancer and
-schedule walker) give the same bytes by construction.  The library is built
+schedule walker, the ST and QLFC coders) give the same bytes by
+construction.  The library is built
 on first use with ``make`` into ``libbsc_tpu_torch/_build/`` and the format
 tables are installed into it (see :func:`libbsc_tpu_torch.load_tables`).
 """
@@ -105,6 +106,10 @@ def load():
         _sig(lib.tbsc_wide_schedule_packed, c_int,
              [u8p, i64, c_int, c_int, u8p, i32p])
         _sig(lib.tbsc_adler32, ctypes.c_uint32, [u8p, i64, ctypes.c_uint32])
+        _sig(lib.tbsc_coder_compress, c_int, [u8p, u8p, c_int, c_int, c_int])
+        _sig(lib.tbsc_coder_decompress, c_int, [u8p, u8p, c_int, c_int])
+        _sig(lib.tbsc_st_encode, c_int, [u8p, c_int, c_int, c_int])
+        _sig(lib.tbsc_st_decode, c_int, [u8p, c_int, c_int, c_int, c_int])
         from .. import tables
 
         _install(lib, tables.current())

@@ -87,7 +87,7 @@ def build_log(name: str) -> str:
     return path.read_text() if path.exists() else ""
 
 
-_VP, _I = ctypes.c_void_p, ctypes.c_int
+_VP, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _DECODE_ARGS = [_VP, _VP, _VP, _VP, _VP, _I, _I, _VP, _VP, _VP]
 # launch name -> (csrc/<stem>.cu, C symbol, argtypes)
 _SIGNATURES = {
@@ -99,6 +99,9 @@ _SIGNATURES = {
     "wide_decode_v2": ("wide_decode", "wide_decode_v2_launch", _DECODE_ARGS),
     "wide_rc_encode": ("wide_rc_encode", "wide_rc_encode_launch",
                        [_VP, _I, _I, _VP, _VP, _VP, _VP]),
+    "byte_hist": ("byte_hist", "byte_hist_launch", [_VP, _L, _VP, _VP]),
+    "adler_partials": ("adler_partials", "adler_partials_launch",
+                       [_VP, _L, _VP, _VP]),
 }
 
 

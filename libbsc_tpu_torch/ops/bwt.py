@@ -1,4 +1,5 @@
-"""Wide-aux Burrows-Wheeler transform on the device, in torch ops.
+"""Burrows-Wheeler transform on the device, in torch ops: the exact-shape
+forward transform at the format's aux rate and the wide-aux profile.
 
 Forward: suffix ranks by prefix quadrupling.  A depth-15 bootstrap sorts
 the first 15 bytes (plus the remaining length, so a suffix that is a
@@ -193,6 +194,18 @@ def _extract_bwt_impl(data: torch.Tensor, rank: torch.Tensor, r: int):
     n_aux = (n - 1) // r
     aux = rank[(torch.arange(n_aux, device=data.device) + 1) * r]
     return U, r0 + 1, aux.to(torch.int32)
+
+
+def bwt_encode(data: torch.Tensor):
+    """Forward BWT of u8[n] at the format's aux rate ``aux_rate(n)``.
+    Returns (U u8[n], primary (0-dim tensor), aux i32[(n-1)//aux_rate(n)])
+    in the convention of the native tbsc_bwt_encode."""
+    n = data.shape[0]
+    if n <= 1:
+        return (data, torch.tensor(n, device=data.device),
+                torch.zeros(0, dtype=torch.int32, device=data.device))
+    _, rank = suffix_array(data)
+    return _extract_bwt_impl(data, rank, aux_rate(n))
 
 
 def bwt_encode_wideaux_device(data: torch.Tensor, r: int):

@@ -2,7 +2,8 @@
 
 The reference (adler32/adler32.cpp:85) computes the standard zlib Adler-32;
 :func:`zlib.adler32` gives the same value where the native runtime is
-missing.
+missing.  The route for a block already on the card is
+``ops/stats_kernels.adler32_device`` (K7).
 """
 
 from __future__ import annotations

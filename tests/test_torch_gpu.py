@@ -1,6 +1,7 @@
-"""The CUDA kernels K1-K5 against their plain PyTorch versions on the card,
+"""The CUDA kernels K1-K7 against their plain PyTorch versions on the card,
 at small size, the fused -m9 -e4 -G route through them (v3 and v2 coder),
-and the pipelined many-block entry points.
+the pipelined many-block entry points, the sharded transform step on a
+one-GPU mesh (K6 in its stage 1) and the -m5 -G device ST route.
 
 These tests need a CUDA device and skip without one.  tests/conftest.py
 imports JAX, which a GPU machine need not have, so run them there with
@@ -20,6 +21,7 @@ from libbsc_tpu_torch import native
 from libbsc_tpu_torch.ops import wide as W
 from libbsc_tpu_torch.ops import wide_kernels as WK
 from libbsc_tpu_torch.ops import wide_schedule as WS
+from libbsc_tpu_torch.ops import stats_kernels as S
 
 pytestmark = pytest.mark.gpu
 
@@ -181,3 +183,84 @@ def test_many_block_entry_points(cuda):
     assert payloads[3] is None
     blocks = WK.device_decode_many(payloads[:3] + [b"\0" * 16], cuda)
     assert blocks == datas[:3] + [None]
+
+
+def _hist_and_adler_inputs(cuda):
+    g = np.random.default_rng(6)
+    d = torch.from_numpy(g.integers(0, 256, 300_007, np.uint8)).to(cuda)
+    return {"random": d, "zeros": torch.zeros(262_144, dtype=torch.uint8,
+                                              device=cuda),
+            "offset": d[3:3 + 200_001], "short": d[5:18],
+            "runs": torch.from_numpy(np.frombuffer(_runs(100_000, 7), np.uint8)
+                                     .copy()).to(cuda)}
+
+
+def test_byte_hist_kernel_equals_plain_and_bincount(cuda):
+    for name, d in _hist_and_adler_inputs(cuda).items():
+        before = S.LAUNCHES["byte_hist"]
+        ours = S.byte_histogram(d)
+        torch.cuda.synchronize()
+        assert S.LAUNCHES["byte_hist"] == before + 1, name
+        assert torch.equal(ours, S.byte_histogram_plain(d)), name
+        assert torch.equal(ours.long(), torch.bincount(d.long(),
+                                                       minlength=256)), name
+    empty = torch.zeros(0, dtype=torch.uint8, device=cuda)
+    assert int(S.byte_histogram(empty).sum()) == 0
+
+
+def test_adler_partials_kernel_equals_plain_and_zlib(cuda):
+    import zlib
+
+    for name, d in _hist_and_adler_inputs(cuda).items():
+        before = S.LAUNCHES["adler_partials"]
+        ours = S._adler_partials(d)
+        torch.cuda.synchronize()
+        assert S.LAUNCHES["adler_partials"] == before + 1, name
+        assert torch.equal(ours, S._adler_partials_plain(d)), name
+        host = d.cpu().numpy().tobytes()
+        assert S.adler32_device(d) == zlib.adler32(host), name
+        assert S.adler32_device(d, 0x9ABCDEF1) == \
+            zlib.adler32(host, 0x9ABCDEF1), name
+
+
+@pytest.mark.parametrize("sorter", ["st", "bwt"])
+def test_transform_step_on_one_gpu(cuda, sorter):
+    from libbsc_tpu_torch import engine
+    from libbsc_tpu_torch.parallel import (make_mesh, make_transform_step,
+                                           shard, unshard)
+
+    native.load()
+    n = 2 * S._HIST_TILE  # K6 takes shards this large
+    blocks = np.stack([np.frombuffer(_text(n, 90 + i), np.uint8)
+                       for i in range(2)])
+    mesh = make_mesh(1)
+    S.reset_launches()
+    out, idx, hist = make_transform_step(mesh, sorter=sorter, k=5)(
+        shard(torch.from_numpy(blocks), mesh))
+    torch.cuda.synchronize()
+    assert S.LAUNCHES["byte_hist"] == 2
+    out, idx, hist = unshard(out), unshard(idx), unshard(hist)
+    for b in range(2):
+        ref = blocks[b].copy()
+        if sorter == "st":
+            ref_idx = engine.st_encode(ref, 5, 0)
+        else:
+            ref_idx = engine.bwt_encode(ref, 0)[0]
+        assert out[b].numpy().tobytes() == ref.tobytes()
+        assert int(idx[b]) == ref_idx
+        assert np.array_equal(hist[b].numpy(),
+                              np.bincount(blocks[b], minlength=256))
+
+
+def test_st_device_route_writes_the_host_archive(cuda):
+    data = _text((1 << 20) + 777, 33)
+    kw = dict(lzp_hash_size=0, lzp_min_len=0,
+              block_sorter=C.BLOCKSORTER_ST5, coder=C.CODER_QLFC_STATIC)
+    P.init(C.FEATURE_FASTMODE | C.FEATURE_CUDA, device=cuda)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    blob = P.compress(data, **kw)
+    assert torch.cuda.max_memory_allocated() > 0  # the sort ran there
+    assert P.decompress(blob) == data
+    P.init(C.FEATURE_FASTMODE, device=cuda)
+    assert P.compress(data, **kw) == blob

@@ -17,8 +17,10 @@ def test_import_loads_no_jax_and_no_jax_package():
         "import sys\n"
         "import libbsc_tpu_torch\n"
         "from libbsc_tpu_torch import api, engine, native\n"
-        "from libbsc_tpu_torch.ops import _cuda, bwt, wide, wide_kernels, "
-        "wide_schedule\n"
+        "from libbsc_tpu_torch.ops import _cuda, bwt, st, stats_kernels, "
+        "wide, wide_kernels, wide_schedule\n"
+        "from libbsc_tpu_torch import parallel\n"
+        "from libbsc_tpu_torch.utils import adler32\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'libbsc_tpu' or "
         "m.startswith('libbsc_tpu.'))\n"
@@ -46,11 +48,17 @@ def test_without_cuda_a_call_that_does_not_ask_for_the_cpu_raises():
 
 
 def test_other_configurations_are_not_supported():
+    """Every sorter and coder of the format is supported; one outside the
+    format is refused as a bad parameter, as in the JAX package."""
     import libbsc_tpu_torch as P
     from libbsc_tpu_torch import constants as C
 
     P.init(C.FEATURE_CUDA, device="cpu")
-    with pytest.raises(P.BscError) as e:
-        P.compress(b"abc" * 1000, block_sorter=C.BLOCKSORTER_BWT,
-                   coder=C.CODER_QLFC_STATIC)
-    assert e.value.code == C.NOT_SUPPORTED
+    for kw in (dict(block_sorter=C.BLOCKSORTER_NONE),
+               dict(coder=C.CODER_NONE), dict(block_sorter=9)):
+        with pytest.raises(P.BscError) as e:
+            P.compress(b"abc" * 1000, **kw)
+        assert e.value.code == C.BAD_PARAMETER
+    blob = P.compress(b"abc" * 1000, block_sorter=C.BLOCKSORTER_BWT,
+                      coder=C.CODER_QLFC_STATIC)
+    assert P.decompress(blob) == b"abc" * 1000
