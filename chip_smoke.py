@@ -13,10 +13,15 @@ Phases, one line or more each:
      probability plane, K2's and K5's payloads (also against the native
      codec with the same lane table, v3 and v2), K3's and K4's decoded
      blocks (also against the input), all exactly equal (tolerance 0: a
-     lossless codec), the plain versions timed by the wall clock.  time:
+     lossless codec), the plain versions timed by the wall clock; K3 and
+     K4 also on three hard blocks (hard_blocks: high-entropy bytes, long
+     all-zero lanes, a skewed lane table with an empty group and dead
+     lanes), against their plain versions and the input.  time:
      each kernel timed with CUDA events on one 25 MiB block's own inputs
      (bsc's default -b25; kernels only, after a warm-up), its payload or
-     decoded block again held against the native codec or the input;
+     decoded block again held against the native codec or the input,
+     with its measured cycles per iteration (ms x max SM clock /
+     iterations);
   3. the v3 main path: the 25 MiB block through api.compress and
      api.decompress with -m9 -e4 -G, launch counters set to 0 just before
      and read just after.  K1, K2 and K3 must have launched and K4 and K5
@@ -65,11 +70,8 @@ Each kernel's bound_ms is the larger of its bytes (each input read once,
 each output written once; for the encode kernels the max_bits rows of
 planes and probabilities they touch) over 3.35 TB/s and its operations
 (one per coded bit, a floor) over 67 TFLOP/s, the H100 SXM's device-memory
-rate and peak outside the tensor cores.  The phase-2 time lines also print
-a serial-chain reckoning: max_bits dependent steps per lane at one
-dependent integer instruction (4 cycles) each, at the card's maximum SM
-clock.  It is a model of a floor, not a measurement: a real step is dozens
-of dependent instructions.
+rate and peak outside the tensor cores.  K3/K4's record buffer is scratch
+between their two kernels, not an input or output of the function.
 """
 
 from __future__ import annotations
@@ -86,9 +88,9 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory rate
 NONTENSOR_OPS_PER_S = 67e12  # H100 SXM peak outside the tensor cores
-STEP_CYCLES = 4              # latency of one dependent integer instruction
 BLOCK = 25 << 20             # bsc's default block size, -b25
 PLAIN_BLOCK = 4 << 20        # phase 2's check block
+HARD_BLOCK = 1 << 20         # the hard decode blocks (the zero one: 4 MiB)
 MANY_BLOCKS = 3
 STEP_BLOCKS = 2              # phase 6's local batch
 TIMED_LAUNCHES = 5
@@ -350,6 +352,63 @@ def check_kernels(st: dict, device) -> dict:
     return out
 
 
+def hard_blocks(text: bytes) -> dict:
+    """K3/K4's hard decode inputs, name -> (block, lane table or None for
+    the native balancer's): high-entropy bytes (ranks up to 255, the most
+    stream units a step, group rings that wrap some 15 times; 30% zeros,
+    since uniform bytes do not code smaller than the block); an all-zero block of 4 MiB + 3 over 60
+    live lanes, each one run of about 70,000 bytes (over 2^16); and text
+    under a skewed table (log-normal spans, group 2 empty, every third
+    lane of group 5 dead; a quarter of the size and spans capped at 4x
+    the mean, so that the plain version's loop stays short)."""
+    g = np.random.default_rng(0x4B34)
+    n = HARD_BLOCK
+    rand = np.where(g.random(n) < 0.3, 0, g.integers(0, 256, n))
+    zn = PLAIN_BLOCK + 3
+    live = np.arange(0, 60 * 17, 17)
+    zeros = np.zeros(1024, np.int64)
+    zeros[live] = zn // len(live)
+    zeros[live[:zn % len(live)]] += 1
+    w = g.lognormal(0.0, 0.75, 1024)
+    w[256:384] = 0
+    w[640:768:3] = 0
+    w = np.minimum(w, 4 * w[w > 0].mean())  # the longest lane, 4x the mean
+    skew = np.floor(w / w.sum() * (n // 4)).astype(np.int64)
+    skew[np.argmax(w)] += n // 4 - skew.sum()
+    return {"random": (rand.astype(np.uint8).tobytes(), None),
+            "zeros": (bytes(zn), zeros.astype(np.int32)),
+            "skewed": (text[:n // 4], skew.astype(np.int32))}
+
+
+def check_hard_decode(text: bytes, device) -> None:
+    """Phase 2 check of K3 and K4 on the hard blocks, each against its
+    plain version and the input, exactly."""
+    from libbsc_tpu_torch.ops import wide
+    from libbsc_tpu_torch.ops import wide_kernels as WK
+
+    for case, (data, sizes) in hard_blocks(text).items():
+        for name, rans in (("wide_decode", True), ("wide_decode_v2", False)):
+            payload = wide.wide_encode(data, n_lanes=WK.LANES, sizes=sizes,
+                                       rans=rans)
+            if payload is None:
+                fail(f"{name}: the {case} block does not code")
+            args, _, units = decode_args(payload, device)
+            out = WK.decode_lanes(*args, rans=rans)
+            err = int((out.long() - WK.decode_lanes_plain(
+                *args, rans=rans).long()).abs().max())
+            if err:
+                fail(f"{name} differs from its plain version by {err} on "
+                     f"the {case} block")
+            if out.cpu().numpy().tobytes() != data:
+                fail(f"{name}: the decoded {case} block differs from the "
+                     "input")
+        lanes = args[2]
+        print(f"phase 2 check hard {case}: K3 and K4 equal to plain and the "
+              f"input; {len(data)} bytes, {int((lanes > 0).sum())} live "
+              f"lanes, longest {int(lanes.max())} bytes, {args[5]} "
+              f"iterations, {units} v2 units", flush=True)
+
+
 def time_kernels(st: dict, device, clock_mhz: float) -> list:
     """Phase 2 time: each kernel with CUDA events on this block's inputs,
     its output held against the native codec or the input."""
@@ -381,25 +440,27 @@ def time_kernels(st: dict, device, clock_mhz: float) -> list:
                 st["U"].tobytes():
             fail(f"{name}: the decoded block differs from the input")
         runs[name] = ((lambda a=args, r=rans: WK.decode_lanes(*a, rans=r)),
-                      4 * units + 16 * WK.LANES + 4 * 281 + n)
+                      2 * units + 16 * WK.LANES + 4 * 281
+                      + 16 * WK.SM_NPOS + n)
     del enc
-    chain = max_bits * STEP_CYCLES / (clock_mhz * 1e3)
     rows = []
     for name in ("wide_model", "wide_rans", "wide_rc_encode", "wide_decode",
                  "wide_decode_v2"):
         fn, nbytes = runs[name]
         ms = cuda_ms(fn, TIMED_LAUNCHES)
         b, by = bound_ms(nbytes, coded)
+        cycles = ms * clock_mhz * 1e3 / max_bits
         rows.append({"name": name, "route": "cuda",
                      "source": "libbsc_tpu_torch/csrc/"
                                f"{SOURCE.get(name, name)}.cu",
                      "replaces": REPLACES[name], "ms": ms,
                      "bound_ms": b, "bound_by": by, "library_ms": None,
-                     "iters": max_bits, "coded_bits": coded})
+                     "iters": max_bits, "coded_bits": coded,
+                     "cycles_per_iteration": cycles})
         print(f"phase 2 time {name}: {ms:.3f} ms (bound {b:.4f} ms by {by})"
               f", {max_bits} iterations, {coded} coded bits, {n} bytes; "
-              f"serial-chain reckoning {chain:.4f} ms (one 4-cycle step per "
-              f"iteration, a model, not measured)", flush=True)
+              f"{cycles:.0f} cycles an iteration at {clock_mhz:.0f} MHz",
+              flush=True)
     return rows
 
 
@@ -841,6 +902,7 @@ def main() -> int:
     data = make_corpus(BLOCK)
     checked = check_kernels(stages(data[:PLAIN_BLOCK], features, device),
                             device)
+    check_hard_decode(data, device)
     checked.update(check_stats(data, device))
     st = stages(data, features, device)
     rows = time_kernels(st, device, clock_mhz)

@@ -88,7 +88,7 @@ def build_log(name: str) -> str:
 
 
 _VP, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-_DECODE_ARGS = [_VP, _VP, _VP, _VP, _VP, _I, _I, _VP, _VP, _VP]
+_DECODE_ARGS = [_VP] * 5 + [_I, _I] + [_VP] * 6
 # launch name -> (csrc/<stem>.cu, C symbol, argtypes)
 _SIGNATURES = {
     "wide_model": ("wide_model", "wide_model_launch",

@@ -17,9 +17,10 @@ leaves each group's stream at the head of its buffer, and
 package specifies both formats).
 
 Decode: :func:`_dec_parse` reads the payload, :func:`_prep` cuts the unit
-stream into per-group segments and warm-up words, and K3 (v3, flag bit 2
-set) or K4 (v2) decodes every lane straight into its span of the output
-block.
+stream into per-group u16 segments and warm-up words, and K3 (v3, flag
+bit 2 set) or K4 (v2) decodes every lane: a chain kernel runs the bits
+and writes one record per run, an expand kernel turns each lane's records
+into its span of the output block.
 
 :func:`device_encode_many` and :func:`device_decode_many` pipeline
 several blocks: the host walker of the next block, or the copy of the
@@ -220,6 +221,187 @@ def _adapt(p, bit):
 
 def _fields(planes: torch.Tensor, i: int) -> torch.Tensor:
     return (planes[i >> 2].long() >> ((i & 3) * 2)) & 3
+
+
+# ---------------------------------------------------------------------------
+# the lane state machine as a table (K3, K4 and their plain versions)
+# ---------------------------------------------------------------------------
+#
+# The control part of a lane's state is its position inside the code of
+# one (rank, run) pair: (phase, t, brs).  Every reachable position gets an
+# id; the histories (rh, uh, prb, pub), the mantissa accumulator val and
+# the rank stay per-lane values.  A position's context is base + key, the
+# key a small function of the histories picked by the position's kind.
+# Entry [pos, 2 * bit : 2 * bit + 2] of the table says what one coded bit
+# does there, as two int32 words:
+#   A: [0:9) next position, [9:18) its context base, [18:21) its key kind,
+#      [21:23) history update (0 none, 1 rh, 2 uh), [23:25) val (0 keep,
+#      1 shift the bit in, 2 reset to 1), [25:27) rank (0 keep, 1 zero,
+#      2 one, 3 the shifted val), [27:29) run completed (0 none, 1 a run
+#      of 1, 2 a run of the shifted val);
+#   B: [0:2) prb, [2:4) pub (3 keep, else the value set).
+# csrc/wide_sm_table.cuh applies it; the test enumerates it against
+# _sm_ctx / _sm_next.
+
+(KEY_RH, KEY_REXP, KEY_RMAN, KEY_UFLAG, KEY_UEXP, KEY_UMAN, KEY_DONE) = \
+    range(7)
+SM_SINK = W.NCTX  # context row of a finished lane (never read by a live one)
+
+
+def sm_positions() -> list:
+    """Every position (phase, t, brs) of the table, in id order.  UMan
+    with brs = 1 (a run exponent stop at its first bit, which no encoder
+    writes) never completes; it is one absorbing position, t ignored."""
+    rexp, uexp = W.RANK_EXP_CAP, W.RUN_EXP_CAP
+    return ([(_PH_RFLAG, 0, 0)]
+            + [(_PH_REXP, t, t) for t in range(1, rexp)]
+            + [(_PH_RMAN, t, b) for b in range(2, rexp + 1)
+               for t in range(b - 1)]
+            + [(_PH_UFLAG, 0, 0)]
+            + [(_PH_UEXP, t, t) for t in range(1, uexp)]
+            + [(_PH_UMAN, 0, 1)]
+            + [(_PH_UMAN, t, b) for b in range(2, uexp + 1)
+               for t in range(b - 1)]
+            + [(_PH_DONE, 0, 0)])
+
+
+def _b3i(b: int) -> int:
+    return 0 if b <= 1 else (1 if b <= 3 else 2)
+
+
+def _sm_base_kind(pos) -> tuple:
+    ph, t, brs = pos
+    if ph == _PH_RFLAG:
+        return 0, KEY_RH
+    if ph == _PH_REXP:
+        return 16 + t - 1, KEY_REXP
+    if ph == _PH_RMAN:
+        return 58 + _RM_OFF[brs], KEY_RMAN
+    if ph == _PH_UFLAG:
+        return 129, KEY_UFLAG
+    if ph == _PH_UEXP:
+        return 177 + t - 1, KEY_UEXP
+    if ph == _PH_UMAN:
+        return 249 + 16 * (brs > 3), KEY_UMAN
+    return SM_SINK, KEY_DONE
+
+
+def _sm_step(pos, bit: int) -> tuple:
+    """The format's rule for one bit at a position: (next position,
+    history, val, rank, run, prb, pub) in the table's codes."""
+    ph, t, brs = pos
+    hist = val = rank = run = 0
+    prb = pub = 3
+    if ph == _PH_RFLAG:
+        hist = 1
+        if bit:
+            nxt = (_PH_REXP, 1, 1)
+        else:
+            nxt, rank, prb = (_PH_UFLAG, 0, 0), 1, 0
+    elif ph == _PH_REXP:
+        if bit and brs + 1 == W.RANK_EXP_CAP:
+            nxt, val, prb = (_PH_RMAN, 0, brs + 1), 2, _b3i(brs + 1)
+        elif bit:
+            nxt = (_PH_REXP, t + 1, brs + 1)
+        elif brs == 1:
+            nxt, rank, prb = (_PH_UFLAG, 0, 0), 2, _b3i(brs)
+        else:
+            nxt, val, prb = (_PH_RMAN, 0, brs), 2, _b3i(brs)
+    elif ph == _PH_RMAN:
+        val = 1
+        if t + 1 == brs - 1:
+            nxt, rank = (_PH_UFLAG, 0, 0), 3
+        else:
+            nxt = (_PH_RMAN, t + 1, brs)
+    elif ph == _PH_UFLAG:
+        hist = 2
+        if bit:
+            nxt = (_PH_UEXP, 1, 1)
+        else:
+            nxt, run, pub = (_PH_RFLAG, 0, 0), 1, 0
+    elif ph == _PH_UEXP:
+        val = 2
+        if bit and brs + 1 == W.RUN_EXP_CAP:
+            nxt, pub = (_PH_UMAN, 0, brs + 1), _b3i(brs + 1)
+        elif bit:
+            nxt, val = (_PH_UEXP, t + 1, brs + 1), 0
+        else:
+            nxt, pub = (_PH_UMAN, 0, brs), _b3i(brs)
+    elif ph == _PH_UMAN:
+        val = 1
+        if brs == 1:
+            nxt = pos
+        elif t + 1 == brs - 1:
+            nxt, run = (_PH_RFLAG, 0, 0), 2
+        else:
+            nxt = (_PH_UMAN, t + 1, brs)
+    else:
+        nxt = pos
+    return nxt, hist, val, rank, run, prb, pub
+
+
+def sm_table() -> np.ndarray:
+    """The table, int32 [positions, 4]: (A, B) for bit 0, then for bit 1."""
+    positions = sm_positions()
+    ids = {p: i for i, p in enumerate(positions)}
+    tab = np.zeros((len(positions), 4), dtype=np.int64)
+    for i, pos in enumerate(positions):
+        for bit in (0, 1):
+            nxt, hist, val, rank, run, prb, pub = _sm_step(pos, bit)
+            base, kind = _sm_base_kind(nxt)
+            tab[i, 2 * bit] = (ids[nxt] | base << 9 | kind << 18 | hist << 21
+                               | val << 23 | rank << 25 | run << 27)
+            tab[i, 2 * bit + 1] = prb | pub << 2
+    return tab.astype(np.int32)
+
+
+SM_NPOS = len(sm_positions())
+SM_DONE = SM_NPOS - 1
+SM_RFLAG = 0
+_table_cache: dict = {}
+
+
+def sm_table_tensor(device) -> torch.Tensor:
+    """:func:`sm_table` as int32 [SM_NPOS, 4] on ``device``."""
+    device = torch.device(device)
+    hit = _table_cache.get(str(device))
+    if hit is None:
+        hit = _table_cache[str(device)] = \
+            torch.from_numpy(sm_table()).to(device)
+    return hit
+
+
+def _sm_key(kind, rh, uh, prb, pub, val, rank):
+    """The context key of each lane's position kind (vectorized)."""
+    w = torch.where
+    rankb = w(rank == 0, 0, w(rank <= 2, 1, 2))
+    key = w(kind == KEY_REXP, 7 * prb + 21 * (rh & 1), rh)
+    key = w(kind == KEY_RMAN, torch.clamp(val - 1, max=14), key)
+    key = w(kind == KEY_UFLAG, 3 * uh + rankb, key)
+    key = w(kind == KEY_UEXP, 24 * pub, key)
+    key = w(kind == KEY_UMAN, torch.clamp(val, max=15), key)
+    return w(kind == KEY_DONE, 0, key)
+
+
+def _sm_apply(tab, pos, bit, rh, uh, prb, pub, val, rank):
+    """One table step for every lane.  Returns (pos, base, kind, rh, uh,
+    prb, pub, val, rank, run); run is 0 where no run completed."""
+    w = torch.where
+    e = tab[pos]
+    a = w(bit == 1, e[:, 2], e[:, 0]).long()
+    b = w(bit == 1, e[:, 3], e[:, 1]).long()
+    hist, vmode = (a >> 21) & 3, (a >> 23) & 3
+    rmode, runmode = (a >> 25) & 3, (a >> 27) & 3
+    shifted = (val << 1) | bit
+    rh = w(hist == 1, ((rh << 1) | bit) & 0xF, rh)
+    uh = w(hist == 2, ((uh << 1) | bit) & 0xF, uh)
+    val = w(vmode == 1, shifted, w(vmode == 2, 1, val))
+    rank = w(rmode == 1, 0, w(rmode == 2, 1, w(rmode == 3, shifted, rank)))
+    run = w(runmode == 1, 1, w(runmode == 2, shifted, 0))
+    prb = w((b & 3) == 3, prb, b & 3)
+    pub = w(((b >> 2) & 3) == 3, pub, (b >> 2) & 3)
+    return (a & 511, (a >> 9) & 511, (a >> 18) & 7, rh, uh, prb, pub, val,
+            rank, run)
 
 
 # ---------------------------------------------------------------------------
@@ -429,28 +611,44 @@ def rc_encode_plain(planes, max_bits: int, cap: int):
 # K3 (v3) and K4 (v2): decode
 # ---------------------------------------------------------------------------
 
+CHUNK = 1024  # units one ring refill of K3/K4 copies; stream rows are
+              # padded to a multiple of it
+
+
 def decode_lanes(warm, goff, lane_sz, lstart, stream, max_bits: int,
                  n: int, rans: bool = True) -> torch.Tensor:
     """K3 (``rans``) or K4.  warm: i32 [1024] initial states or code words
     (u32 bit pattern); goff, lane_sz, lstart: i32 [1024] (first unit after
-    the warm-up pairs, lane sizes, absolute lane starts); stream: i32
-    [8, S] per-group unit segments.  Returns the decoded block u8 [n]."""
+    the warm-up pairs, lane sizes, absolute lane starts); stream: i16
+    [8, S] per-group unit segments (u16 bit patterns, zero past a group's
+    units, S a multiple of CHUNK).  Returns the decoded block u8 [n].
+
+    On the card one call runs the two kernels of csrc/wide_decode.cu: the
+    chain kernel decodes every lane's bits and writes one record
+    ``run << 8 | rank`` per completed run into the lane's region of a
+    record buffer, and the expand kernel replays each lane's records
+    through its move-to-front table into the block."""
     for t, name in ((warm, "warm"), (goff, "goff"), (lane_sz, "lane_sz"),
                     (lstart, "lstart")):
         _check(t, torch.int32, (LANES,), name)
-    _check(stream, torch.int32, (GROUPS, stream.shape[1]), "stream")
+    _check(stream, torch.int16, (GROUPS, stream.shape[1]), "stream")
+    if stream.shape[1] % CHUNK:
+        raise ValueError(f"stream: rows must be a multiple of {CHUNK} units")
     dev = _same_device("decode_lanes", warm, goff, lane_sz, lstart, stream)
     if dev.type == "cpu":
         return decode_lanes_plain(warm, goff, lane_sz, lstart, stream,
                                   max_bits, n, rans)
     name = "wide_decode" if rans else "wide_decode_v2"
+    rec = torch.empty(n, dtype=torch.int32, device=dev)
+    nrec = torch.empty(LANES, dtype=torch.int32, device=dev)
     out = torch.empty(n, dtype=torch.uint8, device=dev)
     pri = priors_tensor(dev)
+    tab = sm_table_tensor(dev)
     fn = _cuda.launcher(name)
     rc = fn(warm.data_ptr(), goff.data_ptr(), lane_sz.data_ptr(),
             lstart.data_ptr(), stream.data_ptr(), int(stream.shape[1]),
-            max_bits, pri.data_ptr(), out.data_ptr(),
-            _cuda.stream_handle(dev))
+            max_bits, pri.data_ptr(), tab.data_ptr(), rec.data_ptr(),
+            nrec.data_ptr(), out.data_ptr(), _cuda.stream_handle(dev))
     _cuda.check(name, rc)
     LAUNCHES[name] += 1
     return out
@@ -458,25 +656,43 @@ def decode_lanes(warm, goff, lane_sz, lstart, stream, max_bits: int,
 
 def decode_lanes_plain(warm, goff, lane_sz, lstart, stream, max_bits: int,
                        n: int, rans: bool = True) -> torch.Tensor:
+    """K3/K4's plain version: :func:`decode_records_plain`, then
+    :func:`expand_records_plain`."""
+    rec, nrec = decode_records_plain(warm, goff, lane_sz, lstart, stream,
+                                     max_bits, n, rans)
+    return expand_records_plain(rec, nrec, lstart, n)
+
+
+def decode_records_plain(warm, goff, lane_sz, lstart, stream, max_bits: int,
+                         n: int, rans: bool = True):
+    """The chain kernel's plain version: every lane's bits through the
+    table form of the state machine.  Returns (rec i32 [n], nrec i32
+    [1024]): lane l's records ``run << 8 | rank`` (the run clipped to what
+    is left of the lane) are rec[lstart[l] : lstart[l] + nrec[l]]."""
     dev = warm.device
     S = int(stream.shape[1])
+    units = stream.long() & 0xFFFF
+    tab = sm_table_tensor(dev).long()
     left = lane_sz.long()
-    st = _fresh_state(torch.where(left > 0, _PH_RFLAG, _PH_DONE))
+    live = left > 0
+    pos = torch.where(live, SM_RFLAG, SM_DONE)
+    base = torch.where(live, 0, SM_SINK)
+    kind = torch.where(live, KEY_RH, KEY_DONE)
+    rh, uh, prb, pub, val, rank = (torch.zeros_like(left) for _ in range(6))
     x = i32_to_u32(warm)  # v3: the rANS state; v2: the code word
     low = torch.zeros_like(x)
     rng = torch.full_like(x, _M32)
     cursor = goff.long().view(GROUPS, W.GROUP)[:, 0].clone()
-    pos = lstart.long().clone()
+    start = lstart.long()
+    nrec = torch.zeros_like(left)
+    rec = torch.zeros(n, dtype=torch.int32, device=dev)
     model = torch.zeros((LANES, 512), dtype=torch.int64, device=dev)
     model[:, :W.NCTX] = priors_tensor(dev).long()
-    mtf = torch.arange(256, device=dev).repeat(LANES, 1)
-    col = torch.arange(256, device=dev)[None, :]
-    srcs, syms, lens = [], [], []
     for _ in range(max_bits):
-        active = st[0] != _PH_DONE
+        active = pos != SM_DONE
         if not bool(active.any()):
             break
-        ctx = _sm_ctx(st, active)[:, None]
+        ctx = (base + _sm_key(kind, rh, uh, prb, pub, val, rank))[:, None]
         p = model.gather(1, ctx)[:, 0]
         if rans:
             slot, hi = x & 0xFFF, x >> 12
@@ -495,30 +711,55 @@ def decode_lanes_plain(warm, goff, lane_sz, lstart, stream, max_bits: int,
 
         ren2 = ren.view(GROUPS, W.GROUP)
         at = cursor[:, None] + ren2.cumsum(1) - ren2.long()
-        unit = torch.where(at < S, stream.gather(1, at.clamp(max=S - 1)), 0)
-        x = torch.where(ren, (x1 << 16) | (unit.view(-1).long() & 0xFFFF), x1)
+        unit = torch.where(at < S, units.gather(1, at.clamp(max=S - 1)), 0)
+        x = torch.where(ren, (x1 << 16) | unit.view(-1), x1)
         cursor += ren2.sum(1)
 
-        st, comp, runlen = _sm_next(st, bit, active)
+        pos, base, kind, rh, uh, prb, pub, val, rank, run = _sm_apply(
+            tab, pos, bit, rh, uh, prb, pub, val, rank)
+        comp = run > 0
         if bool(comp.any()):
-            rank = st[4]
-            sym = mtf.gather(1, rank.clamp(0, 255)[:, None])[:, 0]
-            shift = comp[:, None] & (col >= 1) & (col <= rank[:, None])
-            mtf = torch.where(shift, mtf.roll(1, dims=1), mtf)
-            mtf[:, 0] = torch.where(comp, sym, mtf[:, 0])
-            run = torch.minimum(runlen, left)
-            srcs.append(pos[comp])
-            syms.append(sym[comp])
-            lens.append(run[comp])
-            pos = torch.where(comp, pos + run, pos)
+            run = torch.minimum(run, left)
+            rec[(start + nrec)[comp]] = ((run << 8) | rank)[comp].int()
+            nrec += comp.long()
             left = torch.where(comp, left - run, left)
-            st[0] = torch.where(comp & (left <= 0), _PH_DONE, st[0])
+            fin = comp & (left <= 0)
+            pos = torch.where(fin, SM_DONE, pos)
+            base = torch.where(fin, SM_SINK, base)
+            kind = torch.where(fin, KEY_DONE, kind)
+    return rec, nrec.to(torch.int32)
+
+
+def expand_records_plain(rec, nrec, lstart, n: int) -> torch.Tensor:
+    """The expand kernel's plain version: each lane's records, in order,
+    through the lane's move-to-front table (the symbol at the record's
+    rank moves to the front) into runs at the lane's span of the block,
+    u8 [n]."""
+    dev = rec.device
     out = torch.zeros(n, dtype=torch.uint8, device=dev)
-    if srcs:
-        start, sym, run = torch.cat(srcs), torch.cat(syms), torch.cat(lens)
-        first = torch.repeat_interleave(start - (run.cumsum(0) - run), run)
-        idx = first + torch.arange(int(run.sum()), device=dev)
-        out[idx] = torch.repeat_interleave(sym, run).to(torch.uint8)
+    cnt, start = nrec.long(), lstart.long()
+    if n == 0 or not bool((cnt > 0).any()):
+        return out
+    mtf = torch.arange(256, device=dev).repeat(LANES, 1)
+    col = torch.arange(256, device=dev)[None, :]
+    pos = start.clone()
+    srcs, syms, lens = [], [], []
+    for k in range(int(cnt.max())):
+        has = k < cnt
+        e = torch.where(has, rec[(start + k).clamp(max=n - 1)].long(), 0)
+        rank, run = e & 255, e >> 8
+        sym = mtf.gather(1, rank[:, None])[:, 0]
+        shift = has[:, None] & (col >= 1) & (col <= rank[:, None])
+        mtf = torch.where(shift, mtf.roll(1, dims=1), mtf)
+        mtf[:, 0] = torch.where(has, sym, mtf[:, 0])
+        srcs.append(pos[has])
+        syms.append(sym[has])
+        lens.append(run[has])
+        pos = pos + run
+    start, sym, run = torch.cat(srcs), torch.cat(syms), torch.cat(lens)
+    first = torch.repeat_interleave(start - (run.cumsum(0) - run), run)
+    idx = first + torch.arange(int(run.sum()), device=dev)
+    out[idx] = torch.repeat_interleave(sym, run).to(torch.uint8)
     return out
 
 
@@ -748,24 +989,31 @@ def device_encode_resident(u_dev: torch.Tensor):
 def _prep(units: torch.Tensor, gunits: torch.Tensor, lane_sz: torch.Tensor,
           UT: int, SROWS: int):
     """Cut the flat unit stream into the decoder's per-group segments and
-    extract the warm-up words: units i32 [UT] (u16 values, zero tail),
-    gunits i32 [8], lane_sz i32 [8, 128].  Returns (warm i64 [8, 128]
+    extract the warm-up words: units [UT] (u16 values or their int16 bit
+    patterns, zero tail), gunits i32 [8] (best on the host: its values
+    size the copies), lane_sz i32 [8, 128].  Returns (warm i64 [8, 128]
     (u32 values, 0 for dead lanes), goff i32 [8, 128] (first unit after the
-    warm-up pairs), stream i32 [8, SROWS, 128])."""
-    u = units.long()
-    g = gunits.long()
+    warm-up pairs), stream i16 [8, SROWS, 128] (u16 bit patterns, zero
+    past each group's units))."""
+    dev = units.device
+    counts = gunits.tolist()
+    g = gunits.to(dev).long()
     goffs = g.cumsum(0) - g
-    local = torch.arange(SROWS * W.GROUP, device=u.device)[None, :]
-    idx = (goffs[:, None] + local).clamp(0, UT - 1)
-    stream = torch.where(local < g[:, None], u[idx], 0)
+    stream = torch.zeros((GROUPS, SROWS * W.GROUP), dtype=torch.int16,
+                         device=dev)
+    at = 0
+    for row, c in zip(stream, counts):
+        k = max(0, min(c, SROWS * W.GROUP, UT - at))
+        row[:k] = units[at:at + k].to(torch.int16)
+        at += c
     live = (lane_sz > 0).long()
     pos = 2 * (live.cumsum(1) - live)
-    w0 = u[(goffs[:, None] + pos).clamp(0, UT - 1)]
-    w1 = u[(goffs[:, None] + pos + 1).clamp(0, UT - 1)]
+    w0 = units[(goffs[:, None] + pos).clamp(0, UT - 1)].long() & 0xFFFF
+    w1 = units[(goffs[:, None] + pos + 1).clamp(0, UT - 1)].long() & 0xFFFF
     warm = torch.where(live == 1, (w0 << 16) | w1, 0)
     goff = (2 * live.sum(1))[:, None].expand(GROUPS, W.GROUP)
     return (warm, goff.to(torch.int32).contiguous(),
-            stream.to(torch.int32).reshape(GROUPS, SROWS, W.GROUP))
+            stream.reshape(GROUPS, SROWS, W.GROUP))
 
 
 def _dec_parse(payload: bytes):
@@ -804,11 +1052,11 @@ def _dec_args(p: dict, device) -> tuple:
     """_prep for a parsed payload: the arguments of :func:`decode_lanes`
     on ``device``."""
     upad = torch.from_numpy(p["upad"].view(np.int16)).to(device)
-    units = upad.to(torch.int32) & 0xFFFF
     lane = p["lane_sz"].reshape(GROUPS, W.GROUP).astype(np.int32)
     lane_d = torch.from_numpy(lane).to(device)
-    warm, goff, stream = _prep(units, torch.from_numpy(p["gunits"])
-                               .to(device), lane_d, p["UT"], p["SROWS"])
+    rows = -(-p["SROWS"] * W.GROUP // CHUNK) * CHUNK // W.GROUP
+    warm, goff, stream = _prep(upad, torch.from_numpy(p["gunits"]), lane_d,
+                               p["UT"], rows)
     flat = lane.reshape(-1).astype(np.int64)
     lstart = torch.from_numpy((np.cumsum(flat) - flat).astype(np.int32))
     return (u32_to_i32(warm.reshape(-1)), goff.reshape(-1),

@@ -147,6 +147,26 @@ def test_decode_v2_kernel_equals_plain_and_input(cuda, case):
     assert ours.cpu().numpy().tobytes() == data
 
 
+@pytest.mark.parametrize("rans", [True, False])
+@pytest.mark.parametrize("case", ["random", "zeros", "skewed"])
+def test_decode_kernels_on_hard_blocks(cuda, case, rans):
+    """chip_smoke.py's hard decode blocks: ranks up to 255 with group
+    rings that wrap many times, runs over 2^16 bytes, a skewed table with
+    an empty group and dead lanes."""
+    from chip_smoke import hard_blocks
+
+    data, sizes = hard_blocks(_text(1 << 20, 45))[case]
+    payload = W.wide_encode(data, n_lanes=WK.LANES, sizes=sizes, rans=rans)
+    args = WK._dec_args(WK._dec_parse(payload), cuda)
+    name = "wide_decode" if rans else "wide_decode_v2"
+    before = WK.LAUNCHES[name]
+    ours = WK.decode_lanes(*args, rans=rans)
+    torch.cuda.synchronize()
+    assert WK.LAUNCHES[name] == before + 1
+    assert torch.equal(ours, WK.decode_lanes_plain(*args, rans=rans))
+    assert ours.cpu().numpy().tobytes() == data
+
+
 _V3 = ("wide_model", "wide_rans", "wide_decode")
 _V2 = ("wide_rc_encode", "wide_decode_v2")
 
