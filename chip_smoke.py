@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Quickest proof that the PyTorch/CUDA port runs on the GPU.
 
-    python3 chip_smoke.py            # one CUDA card, about four minutes
+    python3 chip_smoke.py            # one CUDA card, about seven minutes
 
 Phases, one line or more each:
   1. build: the CUDA kernels (one nvcc per csrc/*.cu, all started together)
@@ -16,7 +16,10 @@ Phases, one line or more each:
      lossless codec), the plain versions timed by the wall clock; K3 and
      K4 also on three hard blocks (hard_blocks: high-entropy bytes, long
      all-zero lanes, a skewed lane table with an empty group and dead
-     lanes), against their plain versions and the input.  time:
+     lanes), against their plain versions and the input; K1 + K2 and K5
+     on those blocks, each with its own lane table, against the native
+     codec and, through the device decode, the input (and, on the skewed
+     block, against their plain versions).  time:
      each kernel timed with CUDA events on one 25 MiB block's own inputs
      (bsc's default -b25; kernels only, after a warm-up), its payload or
      decoded block again held against the native codec or the input,
@@ -353,14 +356,16 @@ def check_kernels(st: dict, device) -> dict:
 
 
 def hard_blocks(text: bytes) -> dict:
-    """K3/K4's hard decode inputs, name -> (block, lane table or None for
-    the native balancer's): high-entropy bytes (ranks up to 255, the most
-    stream units a step, group rings that wrap some 15 times; 30% zeros,
-    since uniform bytes do not code smaller than the block); an all-zero block of 4 MiB + 3 over 60
-    live lanes, each one run of about 70,000 bytes (over 2^16); and text
-    under a skewed table (log-normal spans, group 2 empty, every third
-    lane of group 5 dead; a quarter of the size and spans capped at 4x
-    the mean, so that the plain version's loop stays short)."""
+    """The hard inputs of the wide coder's kernels, name -> (block, lane
+    table or None for the native balancer's): high-entropy bytes (ranks up
+    to 255, the most stream units a step, group rings that wrap some 15
+    times; 30% zeros, since uniform bytes do not code smaller than the
+    block); an all-zero block of 4 MiB + 3 over 60 live lanes, each one
+    run of about 70,000 bytes (over 2^16, where the run exponent passes
+    16); and text under a skewed table (log-normal spans, group 2 empty,
+    every third lane of group 5 dead; an eighth of the size and spans
+    capped at 4x the mean, so that the plain versions' loops stay
+    short)."""
     g = np.random.default_rng(0x4B34)
     n = HARD_BLOCK
     rand = np.where(g.random(n) < 0.3, 0, g.integers(0, 256, n))
@@ -373,11 +378,11 @@ def hard_blocks(text: bytes) -> dict:
     w[256:384] = 0
     w[640:768:3] = 0
     w = np.minimum(w, 4 * w[w > 0].mean())  # the longest lane, 4x the mean
-    skew = np.floor(w / w.sum() * (n // 4)).astype(np.int64)
-    skew[np.argmax(w)] += n // 4 - skew.sum()
+    skew = np.floor(w / w.sum() * (n // 8)).astype(np.int64)
+    skew[np.nonzero(w)[0][:n // 8 - skew.sum()]] += 1
     return {"random": (rand.astype(np.uint8).tobytes(), None),
             "zeros": (bytes(zn), zeros.astype(np.int32)),
-            "skewed": (text[:n // 4], skew.astype(np.int32))}
+            "skewed": (text[:n // 8], skew.astype(np.int32))}
 
 
 def check_hard_decode(text: bytes, device) -> None:
@@ -407,6 +412,80 @@ def check_hard_decode(text: bytes, device) -> None:
               f"input; {len(data)} bytes, {int((lanes > 0).sum())} live "
               f"lanes, longest {int(lanes.max())} bytes, {args[5]} "
               f"iterations, {units} v2 units", flush=True)
+
+
+def lane_planes(data: bytes, sizes):
+    """(planes u8 [IT/4, 1024], sizes, max_bits) of the native walker over
+    the lane table ``sizes`` (None: the native balancer's, as
+    wide_kernels._host_prep)."""
+    from libbsc_tpu_torch import native
+    from libbsc_tpu_torch.ops import wide_kernels as WK
+
+    if sizes is None:
+        planes, sizes, max_bits, _ = WK._host_prep(data)
+        return planes, sizes, max_bits
+    n = len(data)
+    sizes = np.ascontiguousarray(sizes, dtype=np.int32)
+    pk, max_bits = WK.host_schedule_packed(
+        np.frombuffer(data, np.uint8).copy(), n, native.i32p(sizes),
+        -(-n // WK.LANES))
+    if max_bits <= 0:
+        fail("the native walker refused a lane table")
+    IT = WK._it_bucket(max(max_bits, WK.TI))
+    pk = np.pad(pk, ((0, 0), (0, max(0, IT // 4 - pk.shape[1]))))
+    return np.ascontiguousarray(pk[:, : IT // 4].T), sizes, max_bits
+
+
+def check_hard_encode(text: bytes, device) -> None:
+    """Phase 2 check of K1 + K2 and K5 on the hard blocks, each block with
+    its own lane table (the native balancer's for the high-entropy one):
+    each payload must equal the native codec's with that table and come
+    back through the device decode.  On the skewed block, the smallest,
+    K1, K2 and K5 are also held against their plain versions."""
+    import torch
+
+    from libbsc_tpu_torch.ops import wide
+    from libbsc_tpu_torch.ops import wide_kernels as WK
+
+    for case, (data, sizes) in hard_blocks(text).items():
+        planes, sizes, max_bits = lane_planes(data, sizes)
+        n = len(data)
+        planes = torch.from_numpy(planes).to(device)
+        probs = WK.model_probs(planes, max_bits)
+        k2 = WK.rans_encode(planes, probs, max_bits)
+        k5 = WK.rc_encode(planes, max_bits)
+        for name, rans, payload in (
+                ("K1 + K2", True, WK._assemble_rans(n, *k2, sizes, max_bits)),
+                ("K5", False, WK._assemble(n, *k5, sizes, max_bits))):
+            if payload is None or payload != wide.wide_encode(
+                    data, n_lanes=WK.LANES, balanced=sizes is not None,
+                    rans=rans, sizes=sizes):
+                fail(f"{name}: the {case} block's payload differs from the "
+                     "native codec's")
+            if WK.device_decode(payload, device) != data:
+                fail(f"{name}: the {case} block's payload does not decode "
+                     "to the input")
+        plain = ""
+        if case == "skewed":
+            if not torch.equal(probs, WK.model_probs_plain(planes, max_bits)):
+                fail("wide_model differs from its plain version on the "
+                     "skewed block")
+            if WK._assemble_rans(n, *WK.rans_encode_plain(
+                    planes, probs, max_bits, int(k2[0].shape[1])), sizes,
+                    max_bits) != WK._assemble_rans(n, *k2, sizes, max_bits):
+                fail("wide_rans differs from its plain version on the "
+                     "skewed block")
+            if WK._assemble(n, *WK.rc_encode_plain(
+                    planes, max_bits, int(k5[0].shape[1])), sizes,
+                    max_bits) != WK._assemble(n, *k5, sizes, max_bits):
+                fail("wide_rc_encode differs from its plain version on the "
+                     "skewed block")
+            plain = ", and equal to their plain versions"
+        live = 0 if sizes is None else int((np.asarray(sizes) > 0).sum())
+        print(f"phase 2 check hard encode {case}: K1 + K2 and K5 payloads "
+              f"equal to the native codec's and decoded to the input{plain};"
+              f" {n} bytes, {live or WK.LANES} live lanes, {max_bits} "
+              "iterations", flush=True)
 
 
 def time_kernels(st: dict, device, clock_mhz: float) -> list:
@@ -903,6 +982,7 @@ def main() -> int:
     checked = check_kernels(stages(data[:PLAIN_BLOCK], features, device),
                             device)
     check_hard_decode(data, device)
+    check_hard_encode(data, device)
     checked.update(check_stats(data, device))
     st = stages(data, features, device)
     rows = time_kernels(st, device, clock_mhz)

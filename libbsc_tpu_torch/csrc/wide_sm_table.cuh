@@ -1,5 +1,6 @@
 // The CODER_QLFC_WIDE lane state machine in table form, for the decoder
-// (wide_decode.cu).  Beside the switch form of wide_sm.cuh, with the same
+// (wide_decode.cu) and, in the form at the end, the encoders (wide_model.cu,
+// wide_rc_encode.cu).  Beside the switch form of wide_sm.cuh, with the same
 // transitions: a lane's control state (phase, t, brs) is one position id,
 // and what a coded bit does at a position is one table entry, so the
 // lanes of a warp run the same instructions whatever their phase.
@@ -68,6 +69,56 @@ __device__ __forceinline__ int table_next(TableLane& s, uint4 e, int bit) {
   s.base = (a >> 9) & 511;
   s.kind = (a >> 18) & 7;
   return runmode == 0 ? 0 : (runmode == 1 ? 1 : shifted);
+}
+
+// The encoders' form of the table (K1 and K5, wide_encode_step.cuh;
+// ops/wide_kernels.py sm_enc_table, one uint2 (A, B) per position and
+// bit).  An encoder needs each step's context, never the run or the rank:
+// its lane keeps the position's context base and key word, rh, uh, prb,
+// pub, the rank's bucket rb and vc = min(val, 15), and the context is the
+// base plus k1 * field1 + k2 * field2 of the histories packed into one word,
+// every update a select.
+constexpr uint32_t kEncKeyRh = 15u << 5 | 1u << 9;  // the rank flag's key
+
+struct EncLane {
+  uint32_t base, kw, rh, uh, prb, pub, rb, vc;
+};
+
+__device__ __forceinline__ EncLane enc_lane() {
+  EncLane s;
+  s.base = 0;
+  s.kw = kEncKeyRh;
+  s.rh = s.uh = s.prb = s.pub = s.rb = s.vc = 0;
+  return s;
+}
+
+__device__ __forceinline__ uint32_t enc_ctx(const EncLane& s) {
+  const uint32_t h = s.rh | s.uh << 4 | s.prb << 8 | s.pub << 10 |
+                     s.rb << 12 | s.vc << 14;
+  const uint32_t kw = s.kw;
+  return s.base +
+         ((h >> (kw & 31)) & ((kw >> 5) & 15)) * ((kw >> 9) & 31) +
+         ((h >> ((kw >> 14) & 31)) & ((kw >> 19) & 3)) * ((kw >> 21) & 31);
+}
+
+// Applies one coded bit with ab, the (A, B) half entry of the lane's
+// position for that bit.  The next position is ab.x & 511.
+__device__ __forceinline__ void enc_next(EncLane& s, uint2 ab, uint32_t bit) {
+  const uint32_t a = ab.x;
+  const uint32_t hist = (a >> 18) & 3, vmode = (a >> 20) & 3;
+  const uint32_t rmode = (a >> 22) & 3;
+  const uint32_t vs = min((s.vc << 1) | bit, 15u);  // the shifted val
+  s.rh = hist == 1 ? ((s.rh << 1) | bit) & 15 : s.rh;
+  s.uh = hist == 2 ? ((s.uh << 1) | bit) & 15 : s.uh;
+  s.vc = vmode == 1 ? vs : s.vc;
+  s.vc = vmode == 2 ? 1 : s.vc;
+  s.rb = rmode == 1 ? 0 : s.rb;
+  s.rb = rmode == 2 ? 1 : s.rb;
+  s.rb = rmode == 3 ? (vs <= 2 ? 1 : 2) : s.rb;
+  s.prb = ((a >> 24) & 3) == 3 ? s.prb : (a >> 24) & 3;
+  s.pub = ((a >> 26) & 3) == 3 ? s.pub : (a >> 26) & 3;
+  s.base = (a >> 9) & 511;
+  s.kw = ab.y;
 }
 
 }  // namespace wide

@@ -92,13 +92,13 @@ _DECODE_ARGS = [_VP] * 5 + [_I, _I] + [_VP] * 6
 # launch name -> (csrc/<stem>.cu, C symbol, argtypes)
 _SIGNATURES = {
     "wide_model": ("wide_model", "wide_model_launch",
-                   [_VP, _I, _VP, _VP, _VP]),
+                   [_VP, _I, _VP, _VP, _VP, _VP]),
     "wide_rans": ("wide_rans", "wide_rans_launch",
                   [_VP, _VP, _I, _I, _VP, _VP, _VP, _VP]),
     "wide_decode": ("wide_decode", "wide_decode_launch", _DECODE_ARGS),
     "wide_decode_v2": ("wide_decode", "wide_decode_v2_launch", _DECODE_ARGS),
     "wide_rc_encode": ("wide_rc_encode", "wide_rc_encode_launch",
-                       [_VP, _I, _I, _VP, _VP, _VP, _VP]),
+                       [_VP, _I, _I, _VP, _VP, _VP, _VP, _VP]),
     "byte_hist": ("byte_hist", "byte_hist_launch", [_VP, _L, _VP, _VP]),
     "adler_partials": ("adler_partials", "adler_partials_launch",
                        [_VP, _L, _VP, _VP]),

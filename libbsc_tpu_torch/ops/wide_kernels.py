@@ -224,7 +224,8 @@ def _fields(planes: torch.Tensor, i: int) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# the lane state machine as a table (K3, K4 and their plain versions)
+# the lane state machine as a table (K1, K3, K4, K5 and the plain versions
+# of K3 and K4)
 # ---------------------------------------------------------------------------
 #
 # The control part of a lane's state is its position inside the code of
@@ -361,14 +362,56 @@ SM_RFLAG = 0
 _table_cache: dict = {}
 
 
-def sm_table_tensor(device) -> torch.Tensor:
-    """:func:`sm_table` as int32 [SM_NPOS, 4] on ``device``."""
+def sm_table_tensor(device, encoder: bool = False) -> torch.Tensor:
+    """:func:`sm_table` (or, with ``encoder``, :func:`sm_enc_table`) as
+    int32 [SM_NPOS, 4] on ``device``."""
     device = torch.device(device)
-    hit = _table_cache.get(str(device))
+    hit = _table_cache.get((str(device), encoder))
     if hit is None:
-        hit = _table_cache[str(device)] = \
-            torch.from_numpy(sm_table()).to(device)
+        hit = _table_cache[(str(device), encoder)] = torch.from_numpy(
+            sm_enc_table() if encoder else sm_table()).to(device)
     return hit
+
+
+# The encoders' form of the table (K1, K5; csrc/wide_encode_step.cuh).  An
+# encoder needs each step's context, never the run or the rank itself, so
+# its lane keeps rh, uh, prb, pub, the rank's bucket rankb (0 for rank 0, 1
+# for 1-2, 2 above) and vc = min(val, 15) (the mantissa keys read no more),
+# and a position's key is k1 * field1 + k2 * field2 of the packed word
+#   H = rh | uh << 4 | prb << 8 | pub << 10 | rankb << 12 | vc << 14,
+# a field being (H >> s) & m.  Entry [pos, 2 * bit : 2 * bit + 2]:
+#   A: [0:9) next position, [9:18) its context base (less 1 at a rank
+#      mantissa, whose key min(val - 1, 14) is vc - 1), [18:20) history
+#      (0 none, 1 rh, 2 uh), [20:22) val (0 keep, 1 shift the bit in, 2
+#      reset to 1), [22:24) rank (0 keep, 1 zero, 2 one, 3 the shifted
+#      val), [24:26) prb, [26:28) pub (3 keep, else the value set);
+#   B: the next position's key: [0:5) s1, [5:9) m1, [9:14) k1, [14:19) s2,
+#      [19:21) m2, [21:26) k2.
+ENC_KEY = {KEY_RH: (0, 15, 1, 0, 0, 0), KEY_REXP: (8, 3, 7, 0, 1, 21),
+           KEY_RMAN: (14, 15, 1, 0, 0, 0), KEY_UFLAG: (4, 15, 3, 12, 3, 1),
+           KEY_UEXP: (10, 3, 24, 0, 0, 0), KEY_UMAN: (14, 15, 1, 0, 0, 0),
+           KEY_DONE: (0, 0, 0, 0, 0, 0)}
+
+
+def enc_key_word(kind: int) -> int:
+    """The B word of a position of key kind ``kind``."""
+    s1, m1, k1, s2, m2, k2 = ENC_KEY[kind]
+    return s1 | m1 << 5 | k1 << 9 | s2 << 14 | m2 << 19 | k2 << 21
+
+
+def sm_enc_table() -> np.ndarray:
+    """The encoders' table, int32 [positions, 4]: (A, B) for bit 0, then
+    for bit 1 (the layout above), derived from :func:`sm_table`."""
+    tab = sm_table().astype(np.int64)
+    out = np.zeros_like(tab)
+    for bit in (0, 1):
+        a, b = tab[:, 2 * bit], tab[:, 2 * bit + 1]
+        kind = (a >> 18) & 7
+        base = ((a >> 9) & 511) - (kind == KEY_RMAN)
+        out[:, 2 * bit] = ((a & 511) | base << 9 | ((a >> 21) & 63) << 18
+                           | (b & 15) << 24)
+        out[:, 2 * bit + 1] = [enc_key_word(int(k)) for k in kind]
+    return out.astype(np.int32)
 
 
 def _sm_key(kind, rh, uh, prb, pub, val, rank):
@@ -408,6 +451,12 @@ def _sm_apply(tab, pos, bit, rh, uh, prb, pub, val, rank):
 # K1: model pass
 # ---------------------------------------------------------------------------
 
+def _aligned(planes: torch.Tensor) -> torch.Tensor:
+    """K1 and K5 stage plane rows by 16-byte asynchronous copies: a copy of
+    ``planes`` when its data does not start on a 16-byte boundary."""
+    return planes if planes.data_ptr() % 16 == 0 else planes.clone()
+
+
 def model_probs(planes: torch.Tensor, max_bits: int) -> torch.Tensor:
     """K1.  planes: u8 [IT/4, 1024] with 4 * IT/4 >= max_bits.  Returns the
     probability plane i32 [IT, 1024]: the 12-bit probability each active
@@ -421,10 +470,11 @@ def model_probs(planes: torch.Tensor, max_bits: int) -> torch.Tensor:
         return model_probs_plain(planes, max_bits)
     probs = torch.empty((4 * rows, LANES), dtype=torch.int32, device=dev)
     probs[max_bits:] = 0
-    pri = priors_tensor(dev)
+    planes = _aligned(planes)
+    pri, tab = priors_tensor(dev), sm_table_tensor(dev, encoder=True)
     fn = _cuda.launcher("wide_model")
-    rc = fn(planes.data_ptr(), max_bits, pri.data_ptr(), probs.data_ptr(),
-            _cuda.stream_handle(dev))
+    rc = fn(planes.data_ptr(), max_bits, pri.data_ptr(), tab.data_ptr(),
+            probs.data_ptr(), _cuda.stream_handle(dev))
     _cuda.check("wide_model", rc)
     LAUNCHES["wide_model"] += 1
     return probs
@@ -550,9 +600,10 @@ def rc_encode(planes: torch.Tensor, max_bits: int):
         return rc_encode_plain(planes, max_bits, cap)
     units = torch.empty((GROUPS, cap), dtype=torch.int32, device=dev)
     counts = torch.empty(GROUPS, dtype=torch.int32, device=dev)
-    pri = priors_tensor(dev)
+    planes = _aligned(planes)
+    pri, tab = priors_tensor(dev), sm_table_tensor(dev, encoder=True)
     fn = _cuda.launcher("wide_rc_encode")
-    rc = fn(planes.data_ptr(), max_bits, cap, pri.data_ptr(),
+    rc = fn(planes.data_ptr(), max_bits, cap, pri.data_ptr(), tab.data_ptr(),
             units.data_ptr(), counts.data_ptr(), _cuda.stream_handle(dev))
     _cuda.check("wide_rc_encode", rc)
     LAUNCHES["wide_rc_encode"] += 1

@@ -167,6 +167,41 @@ def test_decode_kernels_on_hard_blocks(cuda, case, rans):
     assert ours.cpu().numpy().tobytes() == data
 
 
+@pytest.mark.parametrize("case", ["random", "zeros", "skewed"])
+def test_encode_kernels_on_hard_blocks(cuda, case):
+    """K1 + K2 and K5 on chip_smoke.py's hard blocks, each with its own
+    lane table: ranks up to 255, runs over 2^16 bytes, a skewed table with
+    an empty group and dead lanes.  The payloads are the native codec's
+    and decode on the card; on the skewed block the kernels equal their
+    plain versions."""
+    from chip_smoke import hard_blocks, lane_planes
+
+    data, sizes = hard_blocks(_text(1 << 20, 45))[case]
+    planes, sizes, max_bits = lane_planes(data, sizes)
+    planes = torch.from_numpy(planes).to(cuda)
+    before = dict(WK.LAUNCHES)
+    probs = WK.model_probs(planes, max_bits)
+    k2 = WK.rans_encode(planes, probs, max_bits)
+    k5 = WK.rc_encode(planes, max_bits)
+    torch.cuda.synchronize()
+    for name in ("wide_model", "wide_rans", "wide_rc_encode"):
+        assert WK.LAUNCHES[name] == before[name] + 1
+    n = len(data)
+    for rans, payload in ((True, WK._assemble_rans(n, *k2, sizes, max_bits)),
+                          (False, WK._assemble(n, *k5, sizes, max_bits))):
+        assert payload == W.wide_encode(data, n_lanes=WK.LANES,
+                                        balanced=sizes is not None,
+                                        rans=rans, sizes=sizes)
+        assert WK.device_decode(payload, cuda) == data
+    if case == "skewed":
+        assert torch.equal(probs, WK.model_probs_plain(planes, max_bits))
+        p_units, p_counts = WK.rc_encode_plain(planes, max_bits,
+                                               k5[0].shape[1])
+        assert torch.equal(k5[1], p_counts)
+        for g, c in enumerate(k5[1].tolist()):
+            assert torch.equal(k5[0][g, :c], p_units[g, :c])
+
+
 _V3 = ("wide_model", "wide_rans", "wide_decode")
 _V2 = ("wide_rc_encode", "wide_decode_v2")
 
