@@ -18,8 +18,9 @@ Phases, one line or more each:
      all-zero lanes, a skewed lane table with an empty group and dead
      lanes), against their plain versions and the input; K1 + K2 and K5
      on those blocks, each with its own lane table, against the native
-     codec and, through the device decode, the input (and, on the skewed
-     block, against their plain versions).  time:
+     codec and, through the device decode, the input, K2 against its
+     plain version (and, on the skewed block, K1 and K5 against theirs).
+     time:
      each kernel timed with CUDA events on one 25 MiB block's own inputs
      (bsc's default -b25; kernels only, after a warm-up), its payload or
      decoded block again held against the native codec or the input,
@@ -61,7 +62,8 @@ an odd-length view at an odd offset, exactly, and times them (in a CUDA
 graph, so that a call of microseconds is not timed by its dispatch), their
 plain versions and K6's library call (torch.bincount) on the 25 MiB block,
 each launch on one of four copies in turn so that its input is not in the
-50 MB L2 cache.
+50 MB L2 cache; K6 also on an all-zero block, uniform random bytes and the
+text at offset 3, each of 25 MiB and held against its plain version.
 
 The script prints a JSON line of per-kernel numbers (launches from the
 main path that runs the kernel: K1-K3 phase 3, K4 and K5 phase 4, K6 and
@@ -440,8 +442,9 @@ def check_hard_encode(text: bytes, device) -> None:
     """Phase 2 check of K1 + K2 and K5 on the hard blocks, each block with
     its own lane table (the native balancer's for the high-entropy one):
     each payload must equal the native codec's with that table and come
-    back through the device decode.  On the skewed block, the smallest,
-    K1, K2 and K5 are also held against their plain versions."""
+    back through the device decode.  K2 is held against its plain version
+    on every block (the all-zero one takes 35 steps, under one ring of its
+    chain kernel); on the skewed block, the smallest, K1 and K5 too."""
     import torch
 
     from libbsc_tpu_torch.ops import wide
@@ -465,25 +468,29 @@ def check_hard_encode(text: bytes, device) -> None:
             if WK.device_decode(payload, device) != data:
                 fail(f"{name}: the {case} block's payload does not decode "
                      "to the input")
+        cap = int(k2[0].shape[1])
+        pu, pc, pf = WK.rans_encode_plain(planes, probs, max_bits, cap)
+        if not (torch.equal(k2[1], pc) and torch.equal(k2[2], pf) and all(
+                torch.equal(k2[0][g, cap - c:], pu[g, cap - c:])
+                for g, c in enumerate(pc.tolist()))):
+            fail(f"wide_rans differs from its plain version on the {case} "
+                 "block")
+        del pu
         plain = ""
         if case == "skewed":
             if not torch.equal(probs, WK.model_probs_plain(planes, max_bits)):
                 fail("wide_model differs from its plain version on the "
-                     "skewed block")
-            if WK._assemble_rans(n, *WK.rans_encode_plain(
-                    planes, probs, max_bits, int(k2[0].shape[1])), sizes,
-                    max_bits) != WK._assemble_rans(n, *k2, sizes, max_bits):
-                fail("wide_rans differs from its plain version on the "
                      "skewed block")
             if WK._assemble(n, *WK.rc_encode_plain(
                     planes, max_bits, int(k5[0].shape[1])), sizes,
                     max_bits) != WK._assemble(n, *k5, sizes, max_bits):
                 fail("wide_rc_encode differs from its plain version on the "
                      "skewed block")
-            plain = ", and equal to their plain versions"
+            plain = "; K1 and K5 equal to their plain versions"
         live = 0 if sizes is None else int((np.asarray(sizes) > 0).sum())
         print(f"phase 2 check hard encode {case}: K1 + K2 and K5 payloads "
-              f"equal to the native codec's and decoded to the input{plain};"
+              f"equal to the native codec's and decoded to the input, K2 "
+              f"equal to its plain version{plain};"
               f" {n} bytes, {live or WK.LANES} live lanes, {max_bits} "
               "iterations", flush=True)
 
@@ -767,19 +774,32 @@ def time_stats(data: bytes, device) -> list:
         lib_ms = None if library is None else cuda_ms(rotating(library),
                                                       STATS_LAUNCHES)
         b, by = bound_ms(nbytes, ops)
-        if name == "byte_hist":  # skew: every lane of a warp on one bin
-            zeros = [torch.zeros_like(x) for _ in range(COLD_COPIES)]
-            turn = itertools.cycle(zeros)
-            zero_ms = graph_ms(lambda: kernel(next(turn)), STATS_LAUNCHES)
-            print(f"phase 2 time byte_hist on an all-zero block: "
-                  f"{zero_ms:.4f} ms (graph), {n} bytes", flush=True)
-            del zeros, turn
-        rows.append({"name": name, "route": "cuda",
-                     "source": f"libbsc_tpu_torch/csrc/{name}.cu",
-                     "replaces": REPLACES[name], "ms": ms,
-                     "call_ms": call_ms,
-                     "plain_ms": plain_ms, "plain_at_bytes": n,
-                     "bound_ms": b, "bound_by": by, "library_ms": lib_ms})
+        row = {"name": name, "route": "cuda",
+               "source": f"libbsc_tpu_torch/csrc/{name}.cu",
+               "replaces": REPLACES[name], "ms": ms, "call_ms": call_ms,
+               "plain_ms": plain_ms, "plain_at_bytes": n,
+               "bound_ms": b, "bound_by": by, "library_ms": lib_ms}
+        if name == "byte_hist":  # K6's other inputs, each against plain
+            g = np.random.default_rng(0x4B36)
+            others = {
+                "zeros": lambda: torch.zeros_like(x),  # one bin a warp
+                "random": lambda: torch.from_numpy(g.integers(
+                    0, 256, n, np.uint8)).to(device),
+                "offset3": lambda: x.clone()[3:],  # odd length at offset 3
+            }
+            for case, make in others.items():
+                views = [make() for _ in range(COLD_COPIES)]
+                if not torch.equal(kernel(views[0]), plain(views[0])):
+                    fail(f"byte_hist differs from its plain version on the "
+                         f"25 MiB {case} input")
+                turn = itertools.cycle(views)
+                row[f"{case}_ms"] = graph_ms(lambda: kernel(next(turn)),
+                                             STATS_LAUNCHES)
+                print(f"phase 2 time byte_hist on {case}: "
+                      f"{row[f'{case}_ms']:.4f} ms (graph), "
+                      f"{views[0].numel()} bytes", flush=True)
+                del views, turn
+        rows.append(row)
         lib = "" if lib_ms is None else f", torch.bincount {lib_ms:.4f} ms"
         print(f"phase 2 time {name}: {ms:.4f} ms in a graph, {call_ms:.4f}"
               f" ms a Python call (bound {b:.4f} ms by {by}), plain "

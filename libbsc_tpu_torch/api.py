@@ -35,17 +35,9 @@ from .format.header import (
     pack_mode,
     parse_block_header,
 )
+from .errors import BscError, corrupt
 from .ops import wide
 from .utils.adler32 import adler32
-
-
-class BscError(Exception):
-    """An error code of the reference ABI, raised."""
-
-    def __init__(self, code: int, message: str = ""):
-        super().__init__(message or f"libbsc-tpu error {code}")
-        self.code = code
-
 
 _ERROR_NAMES = {
     C.BAD_PARAMETER: "bad parameter",
@@ -191,6 +183,33 @@ def compress(data: bytes, lzp_hash_size: int = C.DEFAULT_LZPHASHSIZE,
     return header + payload
 
 
+def _check_wideaux(index: int, indexes, n: int, r: int) -> None:
+    """The wide-aux tail against the length ``n`` the sorter inverts at
+    rate ``r``: the primary in [1, n], (n - 1) // r indexes (what the
+    native bwt_decode_rate checks), each in [0, n).  The chase gathers at
+    every index, so none may reach it unchecked."""
+    if n <= 1:
+        return
+    k = 0 if indexes is None else len(indexes)
+    if not 0 < index <= n or k != (n - 1) // r:
+        raise corrupt("wide-aux primary or index count")
+    if k and (int(indexes.min()) < 0 or int(indexes.max()) >= n):
+        raise corrupt("wide-aux index out of range")
+
+
+def _check_wide_size(payload: bytes, h) -> int:
+    """The wide payload's size field against the block header: the
+    block's size when the mode word records no LZP, else at most that
+    (LZP output is shorter than its input).  Returns the size."""
+    if len(payload) < 12:
+        raise corrupt("wide payload header")
+    (isize,) = struct.unpack_from("<I", payload, 0)
+    lzp = (h.mode >> 8) & 0xFFFF
+    if isize > h.data_size or (not lzp and isize != h.data_size):
+        raise corrupt("wide payload size")
+    return isize
+
+
 def _decode_to_sorter(block: bytes, expected_size: int | None):
     """Header and Adler checks, then the entropy decode; stops before the
     sorter.  Returns the stored bytes or the state for the sorter."""
@@ -230,11 +249,12 @@ def _decode_to_sorter(block: bytes, expected_size: int | None):
     lz = None
     sorted_done = False
     if coder == C.CODER_QLFC_WIDE:
+        tsize = _check_wide_size(payload, h)
         if block_sorter == C.BLOCKSORTER_BWT_WIDEAUX and device is not None:
-            (tsize,) = struct.unpack_from("<I", payload, 0)
+            r = engine.wideaux_rate(tsize)
+            _check_wideaux(h.index, indexes, tsize, r)
             out = engine.decompress_block_device(
-                payload, h.index, indexes, engine.wideaux_rate(int(tsize)),
-                int(tsize), device)
+                payload, h.index, indexes, r, tsize, device)
             if out is not None:
                 lz, sorted_done = out, True
         if lz is None and device is not None:
@@ -269,9 +289,10 @@ def _run_sorter(st) -> None:
         rc = engine.bwt_decode(lz, h.index, st["num_indexes"], st["indexes"],
                                _state["features"])
     elif st["sorter"] == C.BLOCKSORTER_BWT_WIDEAUX:
+        r = engine.wideaux_rate(len(lz))
+        _check_wideaux(h.index, st["indexes"], len(lz), r)
         rc = engine.bwt_decode_wideaux(
-            lz, h.index, st["num_indexes"], st["indexes"],
-            engine.wideaux_rate(len(lz)), st["device"])
+            lz, h.index, st["num_indexes"], st["indexes"], r, st["device"])
     else:
         rc = engine.st_decode(lz, st["sorter"], h.index, _state["features"])
     if rc < 0:

@@ -1043,6 +1043,8 @@ int bwt_decode_rate(u8* T, int n, int index, int r, int num_indexes,
   if (index <= 0 || index > n) return -1;
   if (r < 256 || (r & (r - 1)) != 0 || !indexes) return -1;
   if (num_indexes != (n - 1) / r) return -1;
+  for (int t = 0; t < num_indexes; ++t)  // every chain starts in [0, n)
+    if (indexes[t] < 0 || indexes[t] >= n) return -1;
   return unbwt_bigram(T, n, index, num_indexes, indexes, r);
 }
 

@@ -94,7 +94,7 @@ _SIGNATURES = {
     "wide_model": ("wide_model", "wide_model_launch",
                    [_VP, _I, _VP, _VP, _VP, _VP]),
     "wide_rans": ("wide_rans", "wide_rans_launch",
-                  [_VP, _VP, _I, _I, _VP, _VP, _VP, _VP]),
+                  [_VP, _VP, _I, _I] + [_VP] * 6),
     "wide_decode": ("wide_decode", "wide_decode_launch", _DECODE_ARGS),
     "wide_decode_v2": ("wide_decode", "wide_decode_v2_launch", _DECODE_ARGS),
     "wide_rc_encode": ("wide_rc_encode", "wide_rc_encode_launch",

@@ -15,6 +15,7 @@ import struct
 import numpy as np
 
 from .. import tables
+from ..errors import corrupt
 
 NCTX = tables.NCTX
 RANK_EXP_CAP = 8      # bit_length(rank) in [1, 8]
@@ -100,14 +101,18 @@ def wide_encode(data, n_lanes=None, balanced=True, rans=True, sizes=None):
 
 
 def wide_decode(payload) -> bytes:
+    """Native wide decode.  A payload the native decoder refuses (its
+    counts or lane sizes do not fit) raises BscError(DATA_CORRUPT)."""
     from .. import native
 
     lib = native.load()
     buf = np.ascontiguousarray(np.frombuffer(bytes(payload), dtype=np.uint8))
+    if len(buf) < 12:
+        raise corrupt("wide payload header")
     (isize,) = struct.unpack_from("<I", buf, 0)
     out = np.empty(int(isize), dtype=np.uint8)
     rc = lib.tbsc_wide_decode(native.u8p(buf), len(buf), native.u8p(out),
                               len(out))
     if rc < 0:
-        raise RuntimeError(f"wide_decode native error {rc}")
+        raise corrupt(f"wide payload (native error {rc})")
     return out[:rc].tobytes()

@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from .. import tables
+from ..errors import corrupt
 from . import _cuda
 from . import wide as W
 
@@ -451,10 +452,10 @@ def _sm_apply(tab, pos, bit, rh, uh, prb, pub, val, rank):
 # K1: model pass
 # ---------------------------------------------------------------------------
 
-def _aligned(planes: torch.Tensor) -> torch.Tensor:
-    """K1 and K5 stage plane rows by 16-byte asynchronous copies: a copy of
-    ``planes`` when its data does not start on a 16-byte boundary."""
-    return planes if planes.data_ptr() % 16 == 0 else planes.clone()
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """K1, K2 and K5 stage rows by 16-byte asynchronous copies: a copy of
+    ``t`` when its data does not start on a 16-byte boundary."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def model_probs(planes: torch.Tensor, max_bits: int) -> torch.Tensor:
@@ -503,6 +504,43 @@ def model_probs_plain(planes: torch.Tensor, max_bits: int) -> torch.Tensor:
 # K2: rANS encode
 # ---------------------------------------------------------------------------
 
+RANS_STEPS = 32  # K2's chunk: steps a ballot word covers
+
+
+def rans_table() -> np.ndarray:
+    """K2's quotient table, u32 [4097]: m_f = floor((2^32 - 1) / f) for f
+    in [1, 4096] (m_0 unused).  For a u32 x, q' = (x * m_f) >> 32 is
+    floor(x / f) or one less, and q' + (x - q' f >= f) is floor(x / f)
+    (the argument is in csrc/wide_rans.cu)."""
+    f = np.arange(4097, dtype=np.uint64)
+    f[0] = 1
+    m = np.uint64(0xFFFFFFFF) // f
+    m[0] = 0
+    return m.astype(np.uint32)
+
+
+_rans_table_cache: dict = {}
+
+
+def rans_table_tensor(device) -> torch.Tensor:
+    """:func:`rans_table` as int32 [4097] (bit patterns) on ``device``."""
+    device = torch.device(device)
+    hit = _rans_table_cache.get(str(device))
+    if hit is None:
+        hit = torch.from_numpy(rans_table().view(np.int32)).to(device)
+        _rans_table_cache[str(device)] = hit
+    return hit
+
+
+def rans_scratch_bytes(max_bits: int) -> int:
+    """K2's scratch between its chain and placement kernels: the dense
+    units u16 [npad, 1024], the ballots u32 [32, npad] and the chunk
+    counts i32 [32, npad / 32], npad = 32 ceil(max_bits / 32)."""
+    chunks = -(-max_bits // RANS_STEPS)
+    npad = RANS_STEPS * chunks
+    return 2 * LANES * npad + 4 * 32 * npad + 4 * 32 * chunks
+
+
 def rans_encode(planes: torch.Tensor, probs: torch.Tensor, max_bits: int):
     """K2.  Returns (units i32 [8, cap], counts i32 [8], fx i32 [1024]):
     group g's stream units, in consumption order, are
@@ -520,8 +558,12 @@ def rans_encode(planes: torch.Tensor, probs: torch.Tensor, max_bits: int):
     units = torch.empty((GROUPS, cap), dtype=torch.int32, device=dev)
     counts = torch.empty(GROUPS, dtype=torch.int32, device=dev)
     fx = torch.empty(LANES, dtype=torch.int32, device=dev)
+    scratch = torch.empty(rans_scratch_bytes(max_bits), dtype=torch.uint8,
+                          device=dev)
+    planes, probs = _aligned(planes), _aligned(probs)
     fn = _cuda.launcher("wide_rans")
     rc = fn(planes.data_ptr(), probs.data_ptr(), max_bits, cap,
+            rans_table_tensor(dev).data_ptr(), scratch.data_ptr(),
             units.data_ptr(), counts.data_ptr(), fx.data_ptr(),
             _cuda.stream_handle(dev))
     _cuda.check("wide_rans", rc)
@@ -1071,23 +1113,40 @@ def _dec_parse(payload: bytes):
     """Header and stream parse for the kernel decode.  Returns a dict, or
     None when the payload takes the native codec (not 1024 lanes, no bits,
     or a group of 2^23 bytes or more — the JAX decoder's record bound,
-    kept so both packages route the same payloads the same way)."""
+    kept so both packages route the same payloads the same way).
+
+    No field is trusted: BscError(DATA_CORRUPT) when the header, the lane
+    sizes (flag bit 0) or the group counts do not fit the payload, or when
+    the lane sizes do not sum to the block size.  The block size itself is
+    held against the block header by api._check_wide_size, before either
+    decode route."""
+    if len(payload) < 12:
+        raise corrupt("wide payload header")
     isize, L, flags, max_bits = struct.unpack_from("<IHHI", payload, 0)
     if L != LANES or max_bits == 0:
         return None
     off = 12
     if flags & 1:
+        if len(payload) < off + 4 * L:
+            raise corrupt("wide lane sizes")
         lane_sz = np.frombuffer(payload, dtype="<u4", count=L,
                                 offset=off).astype(np.int64)
         off += 4 * L
+        if int(lane_sz.sum()) != isize:
+            raise corrupt("wide lane sizes")
     else:
         lane_sz = np.asarray(W.lane_sizes(isize, L), dtype=np.int64)
     if int(lane_sz.reshape(GROUPS, W.GROUP).sum(axis=1).max()) >= (1 << 23):
         return None
+    if len(payload) < off + 4 * GROUPS:
+        raise corrupt("wide group counts")
     gunits = np.frombuffer(payload, dtype="<u4", count=GROUPS,
-                           offset=off).astype(np.int32)
+                           offset=off).astype(np.int64)
     off += 4 * GROUPS
     total = int(gunits.sum())
+    if len(payload) < off + 2 * total:
+        raise corrupt("wide group counts")
+    gunits = gunits.astype(np.int32)
     units = np.frombuffer(payload, dtype="<u2", count=total, offset=off)
     # the longest group's units, in whole rows of 128
     SROWS = max(1, -(-int(gunits.max()) // W.GROUP))

@@ -104,6 +104,31 @@ def test_rans_kernel_equals_plain_and_native(cuda, case):
                                     balanced=sizes is not None, rans=True)
 
 
+def test_rans_kernel_on_a_block_under_one_ring(cuda):
+    """K2 on chip_smoke.py's all-zero hard block: 35 steps, under one ring
+    of 8 chunks of 32 and not a multiple of the chunk, 60 live lanes."""
+    from chip_smoke import hard_blocks, lane_planes
+
+    data, sizes = hard_blocks(b"")["zeros"]
+    planes, sizes, max_bits = lane_planes(data, sizes)
+    assert max_bits < 256 and max_bits % 32
+    planes_d = torch.from_numpy(planes).to(cuda)
+    probs = WK.model_probs(planes_d, max_bits)
+    before = WK.LAUNCHES["wide_rans"]
+    units, counts, fx = WK.rans_encode(planes_d, probs, max_bits)
+    torch.cuda.synchronize()
+    assert WK.LAUNCHES["wide_rans"] == before + 1
+    p_units, p_counts, p_fx = WK.rans_encode_plain(planes_d, probs, max_bits,
+                                                   units.shape[1])
+    assert torch.equal(counts, p_counts) and torch.equal(fx, p_fx)
+    cap = units.shape[1]
+    for g, c in enumerate(counts.tolist()):
+        assert torch.equal(units[g, cap - c:], p_units[g, cap - c:])
+    assert WK._assemble_rans(len(data), units, counts, fx, sizes,
+                             max_bits) == W.wide_encode(
+        data, n_lanes=WK.LANES, sizes=sizes, rans=True)
+
+
 def test_decode_kernel_equals_plain_and_input(cuda, case):
     data, _, sizes, _ = case
     payload = W.wide_encode(data, n_lanes=WK.LANES,
@@ -261,6 +286,40 @@ def test_byte_hist_kernel_equals_plain_and_bincount(cuda):
                                                        minlength=256)), name
     empty = torch.zeros(0, dtype=torch.uint8, device=cuda)
     assert int(S.byte_histogram(empty).sum()) == 0
+
+
+def _hist_agrees(d, name):
+    before = S.LAUNCHES["byte_hist"]
+    ours = S.byte_histogram(d)
+    torch.cuda.synchronize()
+    assert S.LAUNCHES["byte_hist"] == before + 1, name
+    assert torch.equal(ours, S.byte_histogram_plain(d)), name
+    assert torch.equal(ours.long(), torch.bincount(d.long(),
+                                                   minlength=256)), name
+
+
+def test_byte_hist_kernel_on_skewed_and_cyclic_bytes(cuda):
+    """Every lane of a warp on one bin (zeros), every bin in turn (a
+    0..255 cycle), and uniform random bytes."""
+    n = (1 << 20) + 7
+    g = np.random.default_rng(66)
+    cases = {"zeros": torch.zeros(n, dtype=torch.uint8, device=cuda),
+             "cycle": (torch.arange(n, device=cuda) % 256).to(torch.uint8),
+             "random": torch.from_numpy(g.integers(0, 256, n, np.uint8))
+             .to(cuda)}
+    for name, d in cases.items():
+        _hist_agrees(d, name)
+
+
+@pytest.mark.parametrize("offset", range(1, 16))
+def test_byte_hist_kernel_on_views_at_an_offset(cuda, offset):
+    """A shard is a view at any byte offset: lengths 1-15 (no whole
+    16-byte word) and 1 MiB + 7."""
+    g = np.random.default_rng(offset)
+    d = torch.from_numpy(g.integers(0, 256, (1 << 20) + 64, np.uint8)) \
+        .to(cuda)
+    for length in list(range(1, 16)) + [(1 << 20) + 7]:
+        _hist_agrees(d[offset:offset + length], f"{offset}+{length}")
 
 
 def test_adler_partials_kernel_equals_plain_and_zlib(cuda):

@@ -2,7 +2,8 @@
 """Where a step of the wide encoder's forward kernels goes, on the card.
 
 For each given ``csrc`` directory, takes its ``wide_model.cu`` (K1, the v3
-model pass) and ``wide_rc_encode.cu`` (K5, the v2 range encode), adds
+model pass), ``wide_rc_encode.cu`` (K5, the v2 range encode) and
+``wide_rans.cu`` (K2, the v3 rANS pass; ``--kernels=`` picks some), adds
 ``clock64()`` counters to a copy of each, builds the copies with nvcc and
 runs them on one 25 MiB block's own encode inputs (``chip_smoke.py``'s
 phase-2 time inputs: the port's device wide-aux BWT, device lane table and
@@ -44,11 +45,32 @@ and model warps:
     store     K1: the probability store; K5: the slot pass (the prefix of
               each step's four counts, the unit stores and the slots)
 
-Every variant's output is held against the native codec: K1's plane
-through the checkout's K2 must give the native v3 payload, K5's units the
-native v2 payload.
+K2 up to commit fcee879 (one block of 128 threads per group, the plane
+byte and the probability from device memory, a native divide, a
+__syncthreads a step) splits a step into
 
-    git archive 486c5c2 libbsc_tpu_torch/csrc | tar -x -C _archive/parent
+    plane     the plane byte
+    prob      the probability, a second device-memory load
+    division  the renormalisation and the u32 divide and modulo
+    ballot    the ballot and the warp's count store
+    barrier   the __syncthreads
+    store     the prefix of the four warp counts and the unit store
+
+and its chain design (csrc/wide_rans.cu: a warp a block, a ring staged by
+cp.async, a quotient table) a chunk of 32 steps, per step, into
+
+    wait      the wait for the chunk's rows and the next chunk's copies
+    stage     the chunk's loads from the ring and the table
+    walk      the 32 steps: renormalisation, quotient, unit store, ballot
+    chunk     the ballot word's store and the warp's emission count
+
+(the placement kernel is in the time, not in the counts).
+
+Every variant's output is held against the native codec: K1's plane
+through the checkout's K2, and K2's units over the checkout's K1 plane,
+must give the native v3 payload, K5's units the native v2 payload.
+
+    git archive fcee879 libbsc_tpu_torch/csrc | tar -x -C _archive/parent
     python3 tools/encode_step_split.py _archive/parent/libbsc_tpu_torch/csrc \\
         libbsc_tpu_torch/csrc
 
@@ -269,15 +291,90 @@ WARPS_K5 = WARPS_TAKE + [
      "  SPLIT_END\n  if (lane == 0) counts[g] = cursor;\n"),
 ]
 
+# K2 up to commit fcee879: one block of 128 threads per group, a step's
+# plane byte and probability loaded from device memory, a native divide,
+# and a ballot plus a __syncthreads a step for the group's prefix.
+BARRIER_K2 = [
+    ("  for (int i = iters - 1; i >= 0; --i) {\n"
+     "    const int fld = (planes[(size_t)(i >> 2) * kLanes + lane]\n"
+     "                     >> ((i & 3) * 2)) & 3;\n"
+     "    bool ren = false;\n"
+     "    uint32_t unit = 0;\n"
+     "    if (fld & 2) {\n"
+     "      const int bit = fld & 1;\n"
+     "      const uint32_t p = (uint32_t)probs[(size_t)i * kLanes + lane];\n"
+     "      const uint32_t f = bit ? 4096u - p : p;\n",
+     "  SPLIT_BEGIN;\n"
+     "  for (int i = iters - 1; i >= 0; --i) {\n"
+     "    ++n_it_;\n"
+     "    const int fld = (planes[(size_t)(i >> 2) * kLanes + lane]\n"
+     "                     >> ((i & 3) * 2)) & 3;\n"
+     "    asm volatile(\"\" :: \"r\"(fld) : \"memory\");\n"
+     "    SPLIT_MARK(0);\n"
+     "    uint32_t p = 0;\n"
+     "    if (fld & 2) p = (uint32_t)probs[(size_t)i * kLanes + lane];\n"
+     "    asm volatile(\"\" :: \"r\"(p) : \"memory\");\n"
+     "    SPLIT_MARK(1);\n"
+     "    bool ren = false;\n"
+     "    uint32_t unit = 0;\n"
+     "    if (fld & 2) {\n"
+     "      const int bit = fld & 1;\n"
+     "      const uint32_t f = bit ? 4096u - p : p;\n"),
+    ("    const unsigned mask = __ballot_sync(0xFFFFFFFFu, ren);\n",
+     "    asm volatile(\"\" :: \"r\"(x) : \"memory\");\n"
+     "    SPLIT_MARK(2);\n"
+     "    const unsigned mask = __ballot_sync(0xFFFFFFFFu, ren);\n"),
+    ("    __syncthreads();\n",
+     "    SPLIT_MARK(3);\n    __syncthreads();\n    SPLIT_MARK(4);\n"),
+    ("    cursor -= m;\n  }\n",
+     "    cursor -= m;\n    SPLIT_MARK(5);\n  }\n  SPLIT_END\n"),
+]
+
+# K2 from this design on: a chain kernel, one warp a block, 32 steps a
+# chunk from a ring staged by cp.async, then a placement kernel.  Counted
+# per chunk in the chain kernel (a mark inside the 32 steps would stop
+# them overlapping).
+CHAIN_K2 = [
+    ("  uint32_t x = 1u << 16;\n  for (int s = 0; s < nchunks; ++s) {\n",
+     "  uint32_t x = 1u << 16;\n  SPLIT_BEGIN;\n"
+     "  for (int s = 0; s < nchunks; ++s) {\n    n_it_ += kSteps;\n"),
+    ("    stage(ring_p, ring_b, probs, planes, s + kAhead, nchunks, iters, w,"
+     " t);\n",
+     "    stage(ring_p, ring_b, probs, planes, s + kAhead, nchunks, iters, w,"
+     " t);\n    SPLIT_MARK(0);\n"),
+    ("    uint16_t* dst = dense + (size_t)c * kSteps * kLanes + lane;\n",
+     "#pragma unroll\n    for (int j = 0; j < kSteps; ++j)\n"
+     "      asm volatile(\"\" :: \"r\"(m[j]), \"r\"(fb[j]) : \"memory\");\n"
+     "    SPLIT_MARK(1);\n"
+     "    uint16_t* dst = dense + (size_t)c * kSteps * kLanes + lane;\n"),
+    ("    const size_t npad = (size_t)nchunks * kSteps;\n    ballots[",
+     "    asm volatile(\"\" :: \"r\"(x), \"r\"(mine) : \"memory\");\n"
+     "    SPLIT_MARK(2);\n"
+     "    const size_t npad = (size_t)nchunks * kSteps;\n    ballots["),
+    ("    if (t == 0) chunk_cnt[w * nchunks + c] = (int)cnt;\n  }\n",
+     "    if (t == 0) chunk_cnt[w * nchunks + c] = (int)cnt;\n"
+     "    SPLIT_MARK(3);\n  }\n  SPLIT_END\n"),
+]
+
 PATCHES = {("switch", "wide_model"): SWITCH_K1,
            ("switch", "wide_rc_encode"): SWITCH_K5,
            ("warps", "wide_model"): WARPS_K1,
-           ("warps", "wide_rc_encode"): WARPS_K5}
-KERNELS = ("wide_model", "wide_rc_encode")
+           ("warps", "wide_rc_encode"): WARPS_K5,
+           ("barrier", "wide_rans"): BARRIER_K2,
+           ("chain", "wide_rans"): CHAIN_K2}
+KERNELS = ("wide_model", "wide_rc_encode", "wide_rans")
 HEADER = "wide_encode_step.cuh"
+# the parts of a step, per kernel
+K2_PARTS = {"barrier": ("plane", "prob", "division", "ballot", "barrier",
+                        "store"),
+            "chain": ("wait", "stage", "walk", "chunk")}
 
 
 def design(src: str) -> str:
+    if "wide_rans_kernel" in src:
+        return "barrier"
+    if "wide_rans_chain_kernel" in src:
+        return "chain"
     return "warps" if "take_chunk(" in src else "switch"
 
 
@@ -293,8 +390,9 @@ def patch(src: str, patches: list, name: str) -> str:
 def instrument(src: str, stem: str) -> str:
     """The counted copy of a kernel source.  The state-warp design gets
     its counter definitions from the counted copy of the header."""
-    src = patch(src, PATCHES[(design(src), stem)], f"{stem}.cu")
-    if design(src) == "switch":
+    kind = design(src)
+    src = patch(src, PATCHES[(kind, stem)], f"{stem}.cu")
+    if kind != "warps":
         anchor = "namespace {\n"
         if src.count(anchor) != 1:
             raise SystemExit(f"{stem}.cu: anchor not found exactly once: "
@@ -308,13 +406,13 @@ def instrument_header(src: str) -> str:
     return src.replace("#pragma once\n", "#pragma once\n" + PRELUDE, 1)
 
 
-def build(dirs: list, out_dir: Path) -> dict:
+def build(dirs: list, kernels: tuple, out_dir: Path) -> dict:
     """(dir index, kernel, variant) -> CDLL; one nvcc per copy, all
     started together.  Each variant's copies sit in a directory of their
     own, so that a quoted include finds the counted header first."""
     jobs = {}
     for d, csrc in enumerate(dirs):
-        for stem in KERNELS:
+        for stem in kernels:
             src = (csrc / f"{stem}.cu").read_text()
             variants = [("plain", src, None)]
             try:
@@ -338,7 +436,7 @@ def build(dirs: list, out_dir: Path) -> dict:
     return {k: ctypes.CDLL(str(j[2])) for k, j in jobs.items()}
 
 
-def split(clk, kind: str, block_warps: int) -> dict:
+def split(clk, kind: str, block_warps: int, parts: tuple = PARTS) -> dict:
     """Cycles per step of each part, the mean over each role's warps."""
     import numpy as np
 
@@ -353,11 +451,11 @@ def split(clk, kind: str, block_warps: int) -> dict:
     for name, sel in kinds.items():
         if not sel.any():
             continue
-        per = clk[sel, :len(PARTS)].astype(np.float64) / n[sel, None]
+        per = clk[sel, :len(parts)].astype(np.float64) / n[sel, None]
         mean = per.mean(axis=0)
-        out[name] = {"cycles_per_step": dict(zip(PARTS, mean.tolist())),
+        out[name] = {"cycles_per_step": dict(zip(parts, mean.tolist())),
                      "total": float(mean.sum()),
-                     "per_warp_max": dict(zip(PARTS,
+                     "per_warp_max": dict(zip(parts,
                                               per.max(axis=0).tolist())),
                      "warps": int(sel.sum())}
     return out
@@ -370,11 +468,18 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("FAIL: no CUDA device", file=sys.stderr)
         return 2
-    dirs = [Path(a).resolve() for a in sys.argv[1:]] or \
+    kernels = KERNELS
+    argv = []
+    for a in sys.argv[1:]:
+        if a.startswith("--kernels="):
+            kernels = tuple(a.split("=", 1)[1].split(","))
+        else:
+            argv.append(a)
+    dirs = [Path(a).resolve() for a in argv] or \
         [ROOT / "libbsc_tpu_torch" / "csrc"]
     out_dir = ROOT / "libbsc_tpu_torch" / "_build" / "encode_step_split"
     out_dir.mkdir(parents=True, exist_ok=True)
-    libs = build(dirs, out_dir)
+    libs = build(dirs, kernels, out_dir)
 
     import chip_smoke as CS
     from libbsc_tpu_torch import constants as C
@@ -400,16 +505,38 @@ def main() -> int:
     VP, I = ctypes.c_void_p, ctypes.c_int
     result = {"card": card, "max_sm_clock_mhz": clock_mhz,
               "iterations": max_bits, "dirs": [str(d) for d in dirs]}
+    k1_probs = WK.model_probs(planes, max_bits) \
+        if "wide_rans" in kernels else None
     for d, csrc in enumerate(dirs):
         kind = design((csrc / "wide_model.cu").read_text())
         extra = [tab.data_ptr()] if kind != "switch" else []
-        for stem in KERNELS:
-            row = {"design": kind}
+        for stem in kernels:
+            kind_s = design((csrc / f"{stem}.cu").read_text())
+            row = {"design": kind_s}
             for variant in ("plain", "clock"):
                 lib = libs.get((d, stem, variant))
                 if lib is None:
                     continue
-                if stem == "wide_model":
+                if stem == "wide_rans":
+                    cap2 = WK.W.GROUP * max(max_bits, 1)
+                    k2 = (torch.empty((WK.GROUPS, cap2), dtype=torch.int32,
+                                      device=dev),
+                          torch.empty(WK.GROUPS, dtype=torch.int32,
+                                      device=dev),
+                          torch.empty(WK.LANES, dtype=torch.int32,
+                                      device=dev))
+                    fn = lib.wide_rans_launch
+                    if kind_s == "barrier":
+                        mid = []
+                    else:  # the chain design's table and scratch
+                        scratch = torch.empty(WK.rans_scratch_bytes(max_bits),
+                                              dtype=torch.uint8, device=dev)
+                        mid = [WK.rans_table_tensor(dev).data_ptr(),
+                               scratch.data_ptr()]
+                    args = [planes.data_ptr(), k1_probs.data_ptr(), max_bits,
+                            cap2, *mid, *(t.data_ptr() for t in k2), handle]
+                    fn.argtypes = [VP, VP, I, I] + [VP] * (len(args) - 4)
+                elif stem == "wide_model":
                     probs = torch.zeros((4 * rows, WK.LANES),
                                         dtype=torch.int32, device=dev)
                     fn = lib.wide_model_launch
@@ -435,7 +562,10 @@ def main() -> int:
                                          f"cudaError_t {rc}")
 
                 row[f"{variant}_ms"] = CS.cuda_ms(call, 3)
-                if stem == "wide_model":
+                if stem == "wide_rans":
+                    payload = WK._assemble_rans(n, *k2, sizes, max_bits)
+                    rans = True
+                elif stem == "wide_model":
                     k2 = WK.rans_encode(planes, probs, max_bits)
                     payload = WK._assemble_rans(n, *k2, sizes, max_bits)
                     rans = True
@@ -447,8 +577,9 @@ def main() -> int:
                                      "differs from the native codec's")
             row["cycles_per_step_from_ms"] = \
                 row["plain_ms"] * clock_mhz * 1e3 / max_bits
-            name = "K1" if stem == "wide_model" else "K5"
-            line = (f"{csrc} {name} ({kind}): {row['plain_ms']:.3f} ms, "
+            name = {"wide_model": "K1", "wide_rc_encode": "K5",
+                    "wide_rans": "K2"}[stem]
+            line = (f"{csrc} {name} ({kind_s}): {row['plain_ms']:.3f} ms, "
                     f"{max_bits} steps, {row['cycles_per_step_from_ms']:.0f}"
                     f" cycles a step at {clock_mhz:.0f} MHz")
             if (d, stem, "clock") in libs:
@@ -457,8 +588,9 @@ def main() -> int:
                     clk.ctypes.data_as(ctypes.c_void_p))
                 if rc:
                     raise SystemExit(f"clk_read failed: {rc}")
-                row["split"] = split(clk, kind,
-                                     8 if kind == "warps" else 4)
+                row["split"] = split(clk, kind_s,
+                                     8 if kind_s == "warps" else 4,
+                                     K2_PARTS.get(kind_s, PARTS))
                 line += f" ({row['clock_ms']:.3f} ms with counters)"
                 for who, sp in row["split"].items():
                     line += f"; {who} warps counted {sp['total']:.0f}: " + \
