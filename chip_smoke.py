@@ -54,7 +54,24 @@ Phases, one line or more each:
   7. the -m5 -G path: the 25 MiB block through api.compress with
      BLOCKSORTER_ST5 + CODER_QLFC_STATIC and FEATURE_CUDA (the ST sorts on
      the card); the archive must equal the host-ST archive byte for byte
-     and api.decompress must restore it.  Prints encode and decode MB/s.
+     and api.decompress must restore it.  Prints encode and decode MB/s;
+  8. the CLI on the card (cli.py): a file of the corpus's first two 25 MiB
+     blocks and a 1,234,567-byte tail (which takes the per-stage route).
+     (a) -m9 -e4 -G through cli.compress_file with the farm (three device
+     workers and a host worker), launch counters set to 0 just before and
+     read just after: K1 and K2 must have launched; cli.decompress_file
+     with -G must launch K3 and restore the file, and the decode without
+     -G (the native host route) must restore it too; the same file with
+     -t (one worker) for comparison, both ways; (b) the -G default config (-m0 -e1):
+     every container entry must equal the host archive's, and
+     engine.DEVICE_ROUTES must show that the farm's device workers sorted
+     blocks on the card (the farm hands each block to whichever worker
+     takes it first, so the host worker may take a 25 MiB block: the
+     count is printed); then the device BWT route (counted) and the host
+     BWT on one 25 MiB block, equal and each timed; (c)
+     one subprocess each of `python3 -m libbsc_tpu_torch.cli e IN OUT -m9
+     -e4 -G` and `d OUT R -G`: both must exit 0 and R must equal IN.
+     Prints each file MB/s with the card's name and power limit.
 
 Phase 2 also holds K6 (byte histogram) and K7 (Adler-32 partials) against
 their plain versions on the 4 MiB check block, an all-zero 4 MiB block and
@@ -67,7 +84,9 @@ text at offset 3, each of 25 MiB and held against its plain version.
 
 The script prints a JSON line of per-kernel numbers (launches from the
 main path that runs the kernel: K1-K3 phase 3, K4 and K5 phase 4, K6 and
-K7 phase 6), the nvidia-smi line, and, last, {"ok": true, "device": ...}
+K7 phase 6; cli_launches of K1-K3 from phase 8's -m9 -e4 -G encode and
+decode, counted from several threads, so read as launched or not), the
+nvidia-smi line, and, last, {"ok": true, "device": ...}
 only when every phase passed.  It exits non-zero without CUDA or outside
 a checkout of the repository.
 
@@ -98,6 +117,7 @@ PLAIN_BLOCK = 4 << 20        # phase 2's check block
 HARD_BLOCK = 1 << 20         # the hard decode blocks (the zero one: 4 MiB)
 MANY_BLOCKS = 3
 STEP_BLOCKS = 2              # phase 6's local batch
+CLI_TAIL = 1_234_567         # phase 8's file: two blocks and this tail
 TIMED_LAUNCHES = 5
 STATS_LAUNCHES = 40          # K6 and K7 take microseconds a launch
 COLD_COPIES = 4              # 4 x 25 MiB exceeds the 50 MB L2 cache
@@ -962,6 +982,160 @@ def st_breakdown(data: bytes, kw: dict, archive: bytes, features: int,
         f"{k} {v:.1f}" for k, v in ms.items()), flush=True)
 
 
+def _entries(path: str) -> dict:
+    """Container entries of an archive: offset -> (record size, contexts,
+    block).  The -G farm writes blocks as they finish."""
+    from libbsc_tpu_torch import cli
+
+    with open(path, "rb") as f:
+        raw = f.read()
+    off, out = 8, {}
+    while off < len(raw):
+        boff, rs, ctx = struct.unpack_from(cli.BLOCK_HEADER_FMT, raw, off)
+        off += cli.BLOCK_HEADER_SIZE
+        (csz,) = struct.unpack_from("<i", raw, off)
+        out[boff] = (rs, ctx, raw[off:off + csz])
+        off += csz
+    return out
+
+
+def cli_path(data: bytes, features: int, device, repo: str) -> dict:
+    """Phase 8: the CLI on the card.  Returns the launches of K1-K3 in the
+    -m9 -e4 -G encode and decode."""
+    import tempfile
+
+    import torch
+
+    from libbsc_tpu_torch import cli, engine
+    from libbsc_tpu_torch import constants as C
+    from libbsc_tpu_torch.ops import wide_kernels as WK
+
+    card = smi()
+    mb = len(data) / 1e6
+    with tempfile.TemporaryDirectory() as tmp:
+        inp, arch, back = (os.path.join(tmp, n) for n in ("in", "a", "r"))
+        with open(inp, "wb") as f:
+            f.write(data)
+
+        def args(*switches):
+            return cli.parse_args(["cli", "e", inp, arch, *switches])
+
+        def restored() -> bool:
+            with open(back, "rb") as f:
+                return f.read() == data
+
+        # (a) -m9 -e4 -G, with the farm and with -t
+        WK.reset_launches()
+        _, t_enc = timed(lambda: cli.compress_file(inp, arch, args("-m9e4G"),
+                                                   quiet=True))
+        enc = dict(WK.LAUNCHES)
+        WK.reset_launches()
+        _, t_dec = timed(lambda: cli.decompress_file(
+            arch, back, args("-m9e4G"), quiet=True))
+        dec = dict(WK.LAUNCHES)
+        if not (enc["wide_model"] and enc["wide_rans"]):
+            fail(f"cli -m9 -e4 -G: K1 and K2 did not launch: {enc}")
+        if not dec["wide_decode"]:
+            fail(f"cli d -G: K3 did not launch: {dec}")
+        if not restored():
+            fail("cli d -G did not restore the file")
+        farm = _entries(arch)
+        os.remove(back)
+        _, t_host = timed(lambda: cli.decompress_file(arch, back, args(),
+                                                      quiet=True))
+        if not restored():
+            fail("cli d without -G did not restore the -m9 -e4 -G file")
+        _, t_serial = timed(lambda: cli.compress_file(
+            inp, arch, args("-m9e4Gt"), quiet=True))
+        serial = _entries(arch)
+        os.remove(back)
+        _, t_serial_dec = timed(lambda: cli.decompress_file(
+            arch, back, args("-m9e4Gt"), quiet=True))
+        if not restored():
+            fail("cli d -G -t did not restore the file")
+        same = sum(farm[k] == serial.get(k) for k in farm)
+        print(f"phase 8 cli -m9 -e4 -G: {len(data)} bytes in {len(farm)} "
+              f"blocks -> {sum(len(v[2]) for v in farm.values())} bytes; "
+              f"encode {mb / t_enc * 1e3:.2f} MB/s with the farm "
+              f"({t_enc:.1f} ms; {same} of {len(farm)} entries equal to -t's "
+              f"device-route entries), {mb / t_serial * 1e3:.2f} MB/s with "
+              f"-t ({t_serial:.1f} ms); decode -G {mb / t_dec * 1e3:.2f} "
+              f"MB/s ({t_dec:.1f} ms), with -t "
+              f"{mb / t_serial_dec * 1e3:.2f} MB/s ({t_serial_dec:.1f} ms), "
+              f"without -G {mb / t_host * 1e3:.2f} "
+              f"MB/s ({t_host:.1f} ms); launches encode {enc}, decode {dec};"
+              f" {card}", flush=True)
+
+        # (b) the -G default config against the host
+        _, t_host_enc = timed(lambda: cli.compress_file(inp, arch, args(),
+                                                        quiet=True))
+        host = _entries(arch)
+        before = engine.DEVICE_ROUTES["bwt_encode"]
+        _, t_dev_enc = timed(lambda: cli.compress_file(inp, arch, args("-G"),
+                                                       quiet=True))
+        sorted_on_card = engine.DEVICE_ROUTES["bwt_encode"] - before
+        if os.environ.get("TBSC_BWT_DEVICE") is not None:
+            fail("cli -G did not restore TBSC_BWT_DEVICE")
+        if _entries(arch) != host:
+            fail("cli -G: the default config's entries differ from the "
+                 "host archive's")
+        if sorted_on_card < 1:
+            fail(f"cli -G: the device BWT ran {sorted_on_card} times for "
+                 f"{len(host)} blocks")
+        os.remove(back)
+        _, t_def_dec = timed(lambda: cli.decompress_file(
+            arch, back, args("-G"), quiet=True))
+        if not restored():
+            fail("cli -G did not restore the default-config file")
+        lz = engine.lzp_compress(np.frombuffer(data[:BLOCK], np.uint8),
+                                 C.DEFAULT_LZPHASHSIZE, C.DEFAULT_LZPMINLEN,
+                                 features)
+        lz = np.frombuffer(data[:BLOCK], np.uint8) if lz is None else lz
+        os.environ["TBSC_BWT_DEVICE"] = "1"
+        before = engine.DEVICE_ROUTES["bwt_encode"]
+        try:
+            dev_bwt, t_dev_bwt = timed(lambda: engine.bwt_encode(
+                lz.copy(), features, device))
+        finally:
+            del os.environ["TBSC_BWT_DEVICE"]
+        if engine.DEVICE_ROUTES["bwt_encode"] != before + 1:
+            fail("the 25 MiB block did not take the device BWT route")
+        host_bwt, t_host_bwt = timed(lambda: engine.bwt_encode(
+            lz.copy(), features))
+        if dev_bwt[:2] != host_bwt[:2] or not np.array_equal(
+                dev_bwt[2][:dev_bwt[1]], host_bwt[2][:host_bwt[1]]):
+            fail("the device BWT stage differs from the host's")
+        print(f"phase 8 cli -G default config: entries equal to the host "
+              f"archive's; the device BWT sorted {sorted_on_card} of "
+              f"{len(host)} blocks; encode {mb / t_dev_enc * 1e3:.2f} MB/s "
+              f"with -G ({t_dev_enc:.1f} ms), {mb / t_host_enc * 1e3:.2f} "
+              f"MB/s without ({t_host_enc:.1f} ms); decode -G "
+              f"{mb / t_def_dec * 1e3:.2f} MB/s; bwt stage on a "
+              f"{len(lz)}-byte block: device {t_dev_bwt:.1f} ms, host "
+              f"{t_host_bwt:.1f} ms; {card}", flush=True)
+
+        # (c) the entry point itself, one process each way
+        env = dict(os.environ, PYTHONPATH=repo)
+        for cmd in (["e", inp, arch, "-m9", "-e4", "-G"],
+                    ["d", arch, back, "-G"]):
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "libbsc_tpu_torch.cli", *cmd],
+                cwd=repo, env=env, capture_output=True, text=True,
+                timeout=600)
+            if proc.returncode != 0:
+                fail(f"python3 -m libbsc_tpu_torch.cli {' '.join(cmd[:1])} "
+                     f"exited {proc.returncode}:\n{proc.stderr[-2000:]}")
+            print(f"phase 8 subprocess {cmd[0]} -m9 -e4 -G: exit 0 in "
+                  f"{time.perf_counter() - t0:.1f} s: "
+                  f"{proc.stdout.strip().splitlines()[-1].strip()}",
+                  flush=True)
+        if not restored():
+            fail("the cli subprocesses did not restore the file")
+    return {name: {"encode": enc[name], "decode": dec[name]}
+            for name in V3}
+
+
 def main() -> int:
     try:
         import torch
@@ -1023,9 +1197,13 @@ def main() -> int:
         [corpus[i * BLOCK:(i + 1) * BLOCK] for i in range(STEP_BLOCKS)],
         features, device))
     st_device_path(data, features, device)
+    cli_launches = cli_path(corpus[:2 * BLOCK + CLI_TAIL], features, device,
+                            repo)
     for r in rows:
         r.update(checked[r["name"]], launches=launches[r["name"]],
                  plain_at_bytes=PLAIN_BLOCK)
+        if r["name"] in cli_launches:
+            r["cli_launches"] = cli_launches[r["name"]]
     for r in stats_rows:
         r.update(checked[r["name"]], launches=launches[r["name"]])
     print(json.dumps({"kernels": rows + stats_rows}))

@@ -1,6 +1,7 @@
-"""Public compression API (bsc_init / compress / store / block_info /
-decompress) for every block sorter (BWT, BWT_WIDEAUX, ST3-ST8) and coder
-(QLFC static, adaptive, fast, wide).
+"""Public compression API (bsc_init / init_full / compress /
+compress_inplace / store / block_info / decompress / decompress_batch /
+decompress_inplace) for every block sorter (BWT, BWT_WIDEAUX, ST3-ST8)
+and coder (QLFC static, adaptive, fast, wide).
 
 Routing follows the JAX package's api.py (encode :180-229, decode
 :309-368 and :395-415), so both packages write the same archive for the
@@ -10,10 +11,16 @@ same input.  With ``FEATURE_CUDA`` (``-G``):
   BWT, schedule and coder kernels); otherwise the wide coder runs K1/K2
   on the device for 1024-lane blocks and the native codec for others;
 - ST3-ST8 blocks of 1 MiB or more sort on the device
-  (``engine.st_encode``); smaller ones, and every BWT, sort on the host,
-  as in the JAX package, whose device BWT needs an environment opt-in.
+  (``engine.st_encode``); smaller ones sort on the host;
+- BWT blocks of 1 MiB or more sort on the device when
+  ``TBSC_BWT_DEVICE=1`` opts in (``engine.bwt_encode``; the CLI's -G
+  farm sets it for the default config), on the host otherwise.
 The QLFC static, adaptive and fast coders, the host BWT and the inverse
 ST run on the port's native runtime.
+
+``TBSC_LZP_PROBE=1`` makes blocks of 4 MiB or more skip LZP when three
+512 KiB sample windows gain nothing from it, as in the JAX package; the
+mode word records whether LZP ran.
 
 ``init(features, device=None)`` chooses the device: ``None`` means
 ``cuda``, which must be present; ``device="cpu"`` runs every kernel's
@@ -22,6 +29,7 @@ plain PyTorch version instead.
 
 from __future__ import annotations
 
+import os
 import struct
 
 import numpy as np
@@ -73,6 +81,15 @@ def init(features: int = C.DEFAULT_FEATURES, device=None) -> int:
     return C.NO_ERROR
 
 
+def init_full(features: int = C.DEFAULT_FEATURES, malloc=None,
+              zero_malloc=None, free=None, device=None) -> int:
+    """bsc_init_full: :func:`init` with the reference's allocator hooks,
+    which are accepted and ignored (host buffers are numpy's, device
+    buffers torch's caching allocator's)."""
+    del malloc, zero_malloc, free
+    return init(features, device)
+
+
 def _ensure_init():
     if _state["device"] is None:
         init()
@@ -119,6 +136,9 @@ def compress(data: bytes, lzp_hash_size: int = C.DEFAULT_LZPHASHSIZE,
     buf = np.frombuffer(data, dtype=np.uint8)
 
     lz = None
+    if mode != (mode & 0xFF) and not _lzp_probe_pays(
+            buf, lzp_hash_size, lzp_min_len, features):
+        mode &= 0xFF
     if mode != (mode & 0xFF):
         lz = engine.lzp_compress(buf, lzp_hash_size, lzp_min_len,
                                  features)
@@ -141,7 +161,8 @@ def compress(data: bytes, lzp_hash_size: int = C.DEFAULT_LZPHASHSIZE,
 
     if payload is None:  # per-stage route: the sorter, then the coder
         if block_sorter == C.BLOCKSORTER_BWT:
-            index, num_indexes, indexes = engine.bwt_encode(lz, features)
+            index, num_indexes, indexes = engine.bwt_encode(lz, features,
+                                                            device)
         elif block_sorter == C.BLOCKSORTER_BWT_WIDEAUX:
             index, num_indexes, indexes, wideaux_r = \
                 engine.bwt_encode_wideaux(lz)
@@ -181,6 +202,24 @@ def compress(data: bytes, lzp_hash_size: int = C.DEFAULT_LZPHASHSIZE,
     header = pack_block_header(len(payload) + C.HEADER_SIZE, n, mode, index,
                                adler_data, adler32(payload))
     return header + payload
+
+
+def _lzp_probe_pays(buf: np.ndarray, hash_size: int, min_len: int,
+                    features: int) -> bool:
+    """False when ``TBSC_LZP_PROBE=1``, the block is 4 MiB or more and LZP
+    shortens none of three 512 KiB windows (start, middle, end); True
+    otherwise.  Windows can miss long-range matches, so this is opt-in."""
+    n = len(buf)
+    if os.environ.get("TBSC_LZP_PROBE") != "1" or n < 4 * 1024 * 1024:
+        return True
+    win = 512 * 1024
+    saved = 0
+    for off in (0, (n - win) // 2, n - win):
+        lz = engine.lzp_compress(buf[off:off + win], hash_size, min_len,
+                                 features)
+        if lz is not None:
+            saved += win - len(lz)
+    return saved > 0
 
 
 def _check_wideaux(index: int, indexes, n: int, r: int) -> None:
@@ -323,3 +362,49 @@ def decompress(block: bytes, expected_size: int | None = None) -> bytes:
         return st
     _run_sorter(st)
     return _finish_decode(st)
+
+
+def decompress_batch(blocks: list) -> list:
+    """Decompress several independent blocks, results in input order, as
+    mapping :func:`decompress` would.  ST blocks of one order invert
+    together in one native loop (``engine.st_decode_batch``); every other
+    block runs its own sorter."""
+    _ensure_init()
+    states = [_decode_to_sorter(b, None) for b in blocks]
+    st_groups: dict = {}
+    for st in states:
+        if isinstance(st, bytes):
+            continue
+        if C.BLOCKSORTER_ST3 <= st["sorter"] <= C.BLOCKSORTER_ST8:
+            st_groups.setdefault(st["sorter"], []).append(st)
+        else:
+            _run_sorter(st)
+    for k, group in st_groups.items():
+        rc = engine.st_decode_batch([s["lz"] for s in group], k,
+                                    [s["h"].index for s in group])
+        if rc < 0:
+            _raise(rc)
+    return [st if isinstance(st, bytes) else _finish_decode(st)
+            for st in states]
+
+
+def compress_inplace(buf: bytearray, **kwargs) -> int:
+    """bsc_compress_inplace: compress ``buf`` into its own prefix.  Returns
+    the block's size; raises NOT_COMPRESSIBLE when the block would not
+    fit in ``buf``."""
+    blob = compress(bytes(buf), **kwargs)
+    if len(blob) > len(buf):
+        raise BscError(C.NOT_COMPRESSIBLE, "output larger than buffer")
+    buf[: len(blob)] = blob
+    return len(blob)
+
+
+def decompress_inplace(buf: bytearray, block_size: int,
+                       data_size: int) -> int:
+    """bsc_decompress_inplace: decode the block at the head of ``buf``
+    into ``buf``, growing it if needed.  Returns the decoded size."""
+    data = decompress(bytes(buf[:block_size]), expected_size=data_size)
+    if len(data) > len(buf):
+        buf.extend(b"\0" * (len(data) - len(buf)))
+    buf[: len(data)] = data
+    return len(data)

@@ -1,5 +1,6 @@
 """Stage functions: host LZP, BWT, ST and QLFC coders on the native
-runtime, the device ST route, and the fused device stages of the main path.
+runtime, the device BWT and ST routes, and the fused device stages of the
+main path.
 
 The fused encode (:func:`compress_block_device`) copies the LZP'd block to
 the device once and runs the wide-aux BWT, the lane balancer, the bit
@@ -14,6 +15,7 @@ JAX package's conditions.
 
 from __future__ import annotations
 
+import ctypes
 import os
 
 import numpy as np
@@ -24,6 +26,9 @@ from . import native
 # Blocks below this size take the per-stage route (the JAX package's
 # device minimum, kept so both packages route blocks the same way).
 _DEVICE_MIN_BLOCK = 1 << 20
+
+# Calls that took a device route with no kernel of its own to count them.
+DEVICE_ROUTES = {"bwt_encode": 0}
 
 
 def num_threads(features: int) -> int:
@@ -59,9 +64,29 @@ def lzp_decompress(data: np.ndarray, hash_size: int, min_len: int,
     return rc if rc < 0 else out[:rc]
 
 
-def bwt_encode(data: np.ndarray, features: int):
-    """Host BWT in place (the sorter of blocks whose LZP output is at most
-    a header long).  Returns (index, num_indexes, indexes)."""
+def bwt_encode(data: np.ndarray, features: int, device=None):
+    """BWT in place.  Returns (index, num_indexes, indexes).
+
+    With ``device`` (the FEATURE_CUDA route), ``TBSC_BWT_DEVICE=1`` (read
+    at each call, the JAX package's opt-in; the CLI's -G farm sets it) and
+    a block of 1 MiB or more, ``ops/bwt.bwt_encode`` sorts the block there
+    at its own length, with the format's aux rate, and
+    ``DEVICE_ROUTES["bwt_encode"]`` counts the call.  The JAX package pads
+    the block to a size bucket because XLA compiles a program per shape;
+    torch compiles nothing per shape, so there is no padding here.  A
+    device failure raises: there is no silent host fallback.  Every other
+    block sorts on the native runtime."""
+    n = len(data)
+    if (device is not None and n >= _DEVICE_MIN_BLOCK
+            and os.environ.get("TBSC_BWT_DEVICE") == "1"):
+        from .ops import bwt as opsbwt
+
+        U, primary, aux = opsbwt.bwt_encode(
+            torch.from_numpy(_as_c(data)).to(device))
+        aux = aux.cpu().numpy()
+        data[:] = U.cpu().numpy()
+        DEVICE_ROUTES["bwt_encode"] += 1
+        return int(primary), int(aux.shape[0]), aux
     lib = native.load()
     ni = np.zeros(1, dtype=np.uint8)
     idx = np.zeros(256, dtype=np.int32)
@@ -117,6 +142,24 @@ def st_decode(data: np.ndarray, k: int, index: int, features: int) -> int:
                             num_threads(features))
     if rc == 0 and buf is not data:
         data[:] = buf
+    return rc
+
+
+def st_decode_batch(arrays: list, k: int, indexes: list) -> int:
+    """Inverse ST-k of several blocks in place, their backward walks
+    interleaved in one native loop (a serial chase per block, memory-level
+    parallelism across blocks).  Returns 0 or a negative error code."""
+    lib = native.load()
+    bufs = [_as_c(a) for a in arrays]
+    ptrs = (ctypes.c_void_p * len(bufs))(*[b.ctypes.data for b in bufs])
+    ns = np.array([len(b) for b in bufs], dtype=np.int32)
+    idxs = np.array(indexes, dtype=np.int32)
+    rc = lib.tbsc_st_decode_batch(ptrs, native.i32p(ns), k,
+                                  native.i32p(idxs), len(bufs))
+    if rc == 0:
+        for a, b in zip(arrays, bufs):
+            if b is not a:
+                a[:] = b
     return rc
 
 

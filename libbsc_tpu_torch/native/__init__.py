@@ -110,6 +110,8 @@ def load():
         _sig(lib.tbsc_coder_decompress, c_int, [u8p, u8p, c_int, c_int])
         _sig(lib.tbsc_st_encode, c_int, [u8p, c_int, c_int, c_int])
         _sig(lib.tbsc_st_decode, c_int, [u8p, c_int, c_int, c_int, c_int])
+        _sig(lib.tbsc_st_decode_batch, c_int,
+             [ctypes.POINTER(ctypes.c_void_p), i32p, c_int, i32p, c_int])
         from .. import tables
 
         _install(lib, tables.current())

@@ -36,6 +36,7 @@ uint32 shifts or compares.
 from __future__ import annotations
 
 import struct
+import threading
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -66,6 +67,9 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
+# The device copies of the tables below are filled on first use, under
+# this lock: the CLI's -G farm encodes on several threads at once.
+_cache_lock = threading.Lock()
 _priors_cache: dict = {}
 
 
@@ -73,10 +77,11 @@ def priors_tensor(device) -> torch.Tensor:
     """The installed priors as int32[281] on ``device``."""
     device = torch.device(device)
     arrays = tables.current()
-    hit = _priors_cache.get(str(device))
-    if hit is None or hit[0] is not arrays:
-        hit = (arrays, torch.from_numpy(tables.priors()).to(device))
-        _priors_cache[str(device)] = hit
+    with _cache_lock:
+        hit = _priors_cache.get(str(device))
+        if hit is None or hit[0] is not arrays:
+            hit = (arrays, torch.from_numpy(tables.priors()).to(device))
+            _priors_cache[str(device)] = hit
     return hit[1]
 
 
@@ -367,10 +372,11 @@ def sm_table_tensor(device, encoder: bool = False) -> torch.Tensor:
     """:func:`sm_table` (or, with ``encoder``, :func:`sm_enc_table`) as
     int32 [SM_NPOS, 4] on ``device``."""
     device = torch.device(device)
-    hit = _table_cache.get((str(device), encoder))
-    if hit is None:
-        hit = _table_cache[(str(device), encoder)] = torch.from_numpy(
-            sm_enc_table() if encoder else sm_table()).to(device)
+    with _cache_lock:
+        hit = _table_cache.get((str(device), encoder))
+        if hit is None:
+            hit = _table_cache[(str(device), encoder)] = torch.from_numpy(
+                sm_enc_table() if encoder else sm_table()).to(device)
     return hit
 
 
@@ -525,10 +531,11 @@ _rans_table_cache: dict = {}
 def rans_table_tensor(device) -> torch.Tensor:
     """:func:`rans_table` as int32 [4097] (bit patterns) on ``device``."""
     device = torch.device(device)
-    hit = _rans_table_cache.get(str(device))
-    if hit is None:
-        hit = torch.from_numpy(rans_table().view(np.int32)).to(device)
-        _rans_table_cache[str(device)] = hit
+    with _cache_lock:
+        hit = _rans_table_cache.get(str(device))
+        if hit is None:
+            hit = torch.from_numpy(rans_table().view(np.int32)).to(device)
+            _rans_table_cache[str(device)] = hit
     return hit
 
 

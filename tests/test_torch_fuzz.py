@@ -1,5 +1,14 @@
-"""Crafted corrupt blocks through the port's api.decompress: a decoder
-never trusts a payload field.
+"""Corrupt blocks through the port's api.decompress: a decoder never
+trusts a payload field.  Every corrupt block ends in BscError or decodes
+to the exact input, on the host route and on the device route
+(FEATURE_CUDA with device="cpu", which runs the kernels' plain versions);
+any other exception fails the test.
+
+The tests of ``tests/test_fuzz.py``, run on both routes: bit flips on the
+default, ST5, wide-aux and wide-coder formats; truncation; the mode word;
+random garbage.
+
+Crafted blocks:
 
 Each block is a valid -m9 -e4 archive (BLOCKSORTER_BWT_WIDEAUX +
 CODER_QLFC_WIDE, no LZP, written by the host route) with one field
@@ -137,3 +146,77 @@ def test_dec_parse_checks_every_count(blocks):
         with pytest.raises(P.BscError) as e:
             WK._dec_parse(bad)
         assert e.value.code == C.DATA_CORRUPT
+
+
+# --- the tests of tests/test_fuzz.py, on both routes -------------------------
+
+ROUTES = {"host": HOST, "device": DEVICE}
+
+
+def _flips_are_caught(block: bytes, data: bytes, flips) -> None:
+    """Each single-bit flip raises BscError or restores ``data``."""
+    for f in np.unique(flips):
+        corrupted = bytearray(block)
+        corrupted[f // 8] ^= 1 << (f % 8)
+        try:
+            out = P.decompress(bytes(corrupted))
+        except P.BscError:
+            continue  # clean rejection
+        assert out == data, f"silent corruption at bit {f}"
+
+
+@pytest.mark.parametrize("route", sorted(ROUTES))
+def test_bitflips_all_detected(route):
+    g = np.random.default_rng(0xF0)
+    data = make_corpus(g, 200000, "text")
+    P.init(ROUTES[route], device="cpu")
+    block = P.compress(data)
+    _flips_are_caught(block, data, g.integers(0, len(block) * 8, size=200))
+
+
+@pytest.mark.parametrize("route", sorted(ROUTES))
+@pytest.mark.parametrize("kwargs", [
+    {"block_sorter": C.BLOCKSORTER_ST5},
+    {"block_sorter": C.BLOCKSORTER_BWT_WIDEAUX},
+    {"coder": C.CODER_QLFC_WIDE},
+], ids=["st5", "wideaux", "widecoder"])
+def test_bitflips_detected_extension_formats(kwargs, route):
+    g = np.random.default_rng(0xF1)
+    data = make_corpus(g, 150000, "text")
+    P.init(ROUTES[route], device="cpu")
+    block = P.compress(data, **kwargs)
+    _flips_are_caught(block, data, g.integers(0, len(block) * 8, size=80))
+    # truncation, including cuts inside the wide-aux tail
+    for cut in [27, 28, len(block) // 2, len(block) - 2, len(block) - 1]:
+        with pytest.raises(P.BscError):
+            P.decompress(bytes(block[:cut]))
+
+
+@pytest.mark.parametrize("route", sorted(ROUTES))
+def test_truncation_detected(route):
+    data = make_corpus(np.random.default_rng(0xF2), 100000, "text")
+    P.init(ROUTES[route], device="cpu")
+    block = P.compress(data)
+    for cut in [1, 7, 27, 28, 29, len(block) // 2, len(block) - 1]:
+        with pytest.raises(P.BscError):
+            P.decompress(bytes(block[:cut]))
+
+
+@pytest.mark.parametrize("route", sorted(ROUTES))
+def test_mode_word_validation(route):
+    data = make_corpus(np.random.default_rng(0xF3), 100000, "text")
+    P.init(ROUTES[route], device="cpu")
+    block = bytearray(P.compress(data))
+    block[8:12] = (0xFFFFFFFF).to_bytes(4, "little")
+    with pytest.raises(P.BscError):
+        P.decompress(bytes(block))
+
+
+@pytest.mark.parametrize("route", sorted(ROUTES))
+def test_random_garbage_rejected(route):
+    g = np.random.default_rng(0xF4)
+    P.init(ROUTES[route], device="cpu")
+    for n in [0, 1, 27, 28, 100, 5000]:
+        garbage = bytes(g.integers(0, 256, n, dtype=np.uint8))
+        with pytest.raises(P.BscError):
+            P.decompress(garbage)

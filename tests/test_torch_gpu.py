@@ -1,7 +1,9 @@
 """The CUDA kernels K1-K7 against their plain PyTorch versions on the card,
 at small size, the fused -m9 -e4 -G route through them (v3 and v2 coder),
 the pipelined many-block entry points, the sharded transform step on a
-one-GPU mesh (K6 in its stage 1) and the -m5 -G device ST route.
+one-GPU mesh (K6 in its stage 1), the -m5 -G device ST route, and the
+CLI: -m9 -e4 -G through K1, K2 and K3, and the -G default config through
+the device BWT.
 
 These tests need a CUDA device and skip without one.  tests/conftest.py
 imports JAX, which a GPU machine need not have, so run them there with
@@ -378,3 +380,66 @@ def test_st_device_route_writes_the_host_archive(cuda):
     assert P.decompress(blob) == data
     P.init(C.FEATURE_FASTMODE, device=cuda)
     assert P.compress(data, **kw) == blob
+
+
+def _entries(path) -> dict:
+    """Container entries: block offset -> (record size, contexts, block)."""
+    import struct
+
+    from libbsc_tpu_torch import cli
+
+    raw = open(path, "rb").read()
+    off, out = 8, {}
+    while off < len(raw):
+        boff, rs, ctx = struct.unpack_from(cli.BLOCK_HEADER_FMT, raw, off)
+        off += cli.BLOCK_HEADER_SIZE
+        (csz,) = struct.unpack_from("<i", raw, off)
+        out[boff] = (rs, ctx, raw[off:off + csz])
+        off += csz
+    return out
+
+
+def test_cli_m9_e4_gpu_round_trip(cuda, tmp_path):
+    """A 6 MiB file through the CLI's -m9 -e4 -G farm: K1 and K2 encode
+    it, K3 decodes it, and the host route decodes the archive too."""
+    from libbsc_tpu_torch import cli
+
+    data = _text(6 << 20, 66)
+    inp, arch, back = tmp_path / "in", tmp_path / "a.bsc", tmp_path / "r"
+    inp.write_bytes(data)
+    p = cli.parse_args(["x", "e", "a", "b", "-m9e4G"])
+    WK.reset_launches()
+    cli.compress_file(str(inp), str(arch), p, quiet=True)
+    torch.cuda.synchronize()
+    assert WK.LAUNCHES["wide_model"] > 0 and WK.LAUNCHES["wide_rans"] > 0
+    cli.decompress_file(str(arch), str(back), p, quiet=True)
+    torch.cuda.synchronize()
+    assert WK.LAUNCHES["wide_decode"] > 0
+    assert back.read_bytes() == data
+    back.unlink()
+    cli.decompress_file(str(arch), str(back), cli.Params(), quiet=True)
+    assert back.read_bytes() == data
+
+
+def test_cli_gpu_default_config_entries_equal_host(cuda, tmp_path):
+    """-G on the default config: the farm's device workers sort 2 MiB
+    blocks on the card, and every container entry equals the host's."""
+    import os
+
+    from libbsc_tpu_torch import cli, engine
+
+    data = _text(3 * (2 << 20) + 4321, 67)
+    inp = tmp_path / "in"
+    inp.write_bytes(data)
+    p = cli.parse_args(["x", "e", "a", "b", "-b2"])
+    cli.compress_file(str(inp), str(tmp_path / "host.bsc"), p, quiet=True)
+    q = cli.parse_args(["x", "e", "a", "b", "-b2G"])
+    before = engine.DEVICE_ROUTES["bwt_encode"]
+    prior = os.environ.get("TBSC_BWT_DEVICE")
+    cli.compress_file(str(inp), str(tmp_path / "dev.bsc"), q, quiet=True)
+    assert engine.DEVICE_ROUTES["bwt_encode"] > before
+    assert os.environ.get("TBSC_BWT_DEVICE") == prior
+    assert _entries(tmp_path / "dev.bsc") == _entries(tmp_path / "host.bsc")
+    back = tmp_path / "r"
+    cli.decompress_file(str(tmp_path / "dev.bsc"), str(back), q, quiet=True)
+    assert back.read_bytes() == data

@@ -16,7 +16,9 @@ def test_import_loads_no_jax_and_no_jax_package():
     code = (
         "import sys\n"
         "import libbsc_tpu_torch\n"
-        "from libbsc_tpu_torch import api, engine, native\n"
+        "from libbsc_tpu_torch import api, cli, engine, filters, native\n"
+        "from libbsc_tpu_torch.filters import detectors, preprocessing, "
+        "tables\n"
         "from libbsc_tpu_torch.ops import _cuda, bwt, st, stats_kernels, "
         "wide, wide_kernels, wide_schedule\n"
         "from libbsc_tpu_torch import parallel\n"
