@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Quickest proof that the PyTorch/CUDA port runs on the GPU.
 
-    python3 chip_smoke.py            # one CUDA card, about seven minutes
+    python3 chip_smoke.py            # one CUDA card, about eight minutes
 
 Phases, one line or more each:
   1. build: the CUDA kernels (one nvcc per csrc/*.cu, all started together)
@@ -72,6 +72,24 @@ Phases, one line or more each:
      one subprocess each of `python3 -m libbsc_tpu_torch.cli e IN OUT -m9
      -e4 -G` and `d OUT R -G`: both must exit 0 and R must equal IN.
      Prints each file MB/s with the card's name and power limit.
+  9. scale-out and DC3: (a) parallel.make_sharded_st_step, the sample
+     sort, on meshes that list cuda:0 several times: the corpus's first
+     25 MiB block on (1, 4) with k = 8 and k = 5, the first two blocks on
+     (2, 2) with k = 8; each output and index must equal ops/st.st_encode
+     on the card and the native ST, ok all True; the step and st_encode
+     are timed (on one card the step does more work than one sort; its
+     speed across cards is not measured here); (b) the multi-process
+     farm, parallel/distributed.py, on phase 8's file with -m9 -e4: once
+     in this process, once as two `python3 -c` ranks on one gloo group
+     (a free TCP port), both on cuda:0; each rank prints its device, its
+     block offsets and its K1/K2 launches (both must launch) and must
+     import no JAX; the two-process archive must decode with cli -G (K3
+     launched) to the file, and its entries must equal the one-process
+     archive's; (c) the LZP'd 25 MiB block through engine.bwt_encode with
+     TBSC_BWT_DEVICE=1, by prefix quadrupling and with TBSC_BWT=dc3 by
+     DC3, in turns (prefix, dc3, dc3, prefix), each equal to the native
+     BWT, timed, with its peak device memory; DEVICE_ROUTES must count
+     both; both variables are restored.
 
 Phase 2 also holds K6 (byte histogram) and K7 (Adler-32 partials) against
 their plain versions on the 4 MiB check block, an all-zero 4 MiB block and
@@ -85,7 +103,9 @@ text at offset 3, each of 25 MiB and held against its plain version.
 The script prints a JSON line of per-kernel numbers (launches from the
 main path that runs the kernel: K1-K3 phase 3, K4 and K5 phase 4, K6 and
 K7 phase 6; cli_launches of K1-K3 from phase 8's -m9 -e4 -G encode and
-decode, counted from several threads, so read as launched or not), the
+decode, counted from several threads, so read as launched or not;
+farm_launches of K1-K3 from phase 9's farm: the one-process encode, the
+two ranks' encodes summed from their lines, and the -G decode), the
 nvidia-smi line, and, last, {"ok": true, "device": ...}
 only when every phase passed.  It exits non-zero without CUDA or outside
 a checkout of the repository.
@@ -1136,6 +1156,241 @@ def cli_path(data: bytes, features: int, device, repo: str) -> dict:
             for name in V3}
 
 
+def sharded_st(blocks: list, features: int, device) -> None:
+    """Phase 9 (a): the sample-sort ST step on meshes that list cuda:0
+    several times: the first block on (1, 4) with k = 8 and k = 5, both
+    blocks on (2, 2) with k = 8.  Each output and index must equal
+    ops/st.st_encode on the card and the native host ST, and ok must be
+    all True.  Each step and st_encode are timed warm (the second call)."""
+    import torch
+
+    from libbsc_tpu_torch import engine
+    from libbsc_tpu_torch.ops import st as opsst
+    from libbsc_tpu_torch.parallel import (make_mesh, make_sharded_st_step,
+                                           shard, unshard)
+
+    host = np.stack([np.frombuffer(b, np.uint8) for b in blocks])
+    card = smi()
+    for (dp, sp), k in (((1, 4), 8), ((1, 4), 5), ((2, 2), 8)):
+        mesh = make_mesh(dp * sp, dp=dp, sp=sp, devices=[device] * (dp * sp))
+        batch = torch.from_numpy(host[:dp])
+        grid = shard(batch, mesh)
+        step = make_sharded_st_step(mesh, k=k)
+        step(grid)
+        (out, idx, ok), ms = timed(lambda: step(grid))
+        out, idx, ok = unshard(out), unshard(idx), unshard(ok)
+        if not bool(ok.all()):
+            fail(f"sharded st ({dp}, {sp}) k={k}: ok is {ok.tolist()}")
+        dev_block = batch[0].to(device)
+        opsst.st_encode(dev_block, k)
+        _, st_ms = timed(lambda: opsst.st_encode(dev_block, k))
+        for b in range(dp):
+            ref_out, ref_idx = opsst.st_encode(batch[b].to(device), k)
+            if not torch.equal(out[b], ref_out.cpu()) \
+                    or int(idx[b]) != int(ref_idx):
+                fail(f"sharded st ({dp}, {sp}) k={k}: block {b} differs "
+                     "from ops/st.st_encode")
+            ref = host[b].copy()
+            index = engine.st_encode(ref, k, features)
+            if out[b].numpy().tobytes() != ref.tobytes() \
+                    or int(idx[b]) != index:
+                fail(f"sharded st ({dp}, {sp}) k={k}: block {b} differs "
+                     "from the native ST")
+        print(f"phase 9 sharded st ({dp}, {sp}) of {device} k={k}: {dp} "
+              f"block(s) of {host.shape[1]} bytes equal to st_encode and "
+              f"the native ST, ok all True; step {ms:.1f} ms, st_encode "
+              f"{st_ms:.1f} ms a block; {card}", flush=True)
+
+
+# One rank of phase 9's two-process farm, run as `python3 -c FARM_RANK
+# in out port block pid features`; it prints one RANK line.
+FARM_RANK = """
+import json, os, sys, time
+import torch
+from libbsc_tpu_torch import constants as C
+from libbsc_tpu_torch.ops import wide_kernels as WK
+from libbsc_tpu_torch.parallel import distributed as dist
+inp, arch, port, block, pid, features = sys.argv[1:7]
+block, pid = int(block), int(pid)
+dist.init(coordinator=f"localhost:{port}", num_processes=2, process_id=pid)
+t0 = time.perf_counter()
+dist.compress_file(inp, arch, block_size=block,
+                   block_sorter=C.BLOCKSORTER_BWT_WIDEAUX,
+                   coder=C.CODER_QLFC_WIDE, features=int(features))
+ms = (time.perf_counter() - t0) * 1e3
+n_blocks = -(-os.path.getsize(inp) // block)
+bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
+       or m == "libbsc_tpu" or m.startswith("libbsc_tpu.")]
+print("RANK " + json.dumps({
+    "rank": pid, "device": str(dist._device),
+    "offsets": [i * block for i in range(n_blocks) if i % 2 == pid],
+    "launches": dict(WK.LAUNCHES), "ms": ms, "jax_modules": bad}))
+torch.distributed.destroy_process_group()
+"""
+
+
+def farm(data: bytes, features: int, device, repo: str) -> dict:
+    """Phase 9 (b): the multi-process farm on phase 8's file with -m9 -e4:
+    one process here, then two `python3 -c` ranks on one gloo group, both
+    on cuda:0 (distributed.init's default device on one card).  Each rank
+    must launch K1 and K2; the two-process archive
+    must decode through the CLI with -G (K3 launched) to the file, and its
+    entries must equal the one-process archive's.  Returns K1-K3's
+    launches."""
+    import socket
+    import tempfile
+
+    import torch
+
+    from libbsc_tpu_torch import cli
+    from libbsc_tpu_torch import constants as C
+    from libbsc_tpu_torch.ops import wide_kernels as WK
+    from libbsc_tpu_torch.parallel import distributed as dist
+
+    card = smi()
+    mb = len(data) / 1e6
+    kw = dict(block_size=BLOCK, block_sorter=C.BLOCKSORTER_BWT_WIDEAUX,
+              coder=C.CODER_QLFC_WIDE, features=features)
+    with tempfile.TemporaryDirectory() as tmp:
+        inp, one, two, back = (os.path.join(tmp, n)
+                               for n in ("in", "one", "two", "r"))
+        with open(inp, "wb") as f:
+            f.write(data)
+        dist.init(num_processes=1, process_id=0)
+        if dist._device != device:
+            fail(f"distributed.init chose {dist._device}, not {device}")
+        WK.reset_launches()
+        _, t_one = timed(lambda: dist.compress_file(inp, one, **kw))
+        one_launches = dict(WK.LAUNCHES)
+        if not (one_launches["wide_model"] and one_launches["wide_rans"]):
+            fail(f"farm, one process: K1 and K2 did not launch: "
+                 f"{one_launches}")
+        torch.cuda.empty_cache()
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        env = dict(os.environ, PYTHONPATH=repo)
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", FARM_RANK, inp, two, str(port),
+             str(BLOCK), str(pid), str(features)], cwd=repo, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for pid in range(2)]
+        try:
+            outs = [p.communicate(timeout=300) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        t_two = (time.perf_counter() - t0) * 1e3
+        ranks = []
+        for p, (out, err) in zip(procs, outs):
+            if p.returncode != 0:
+                fail(f"farm rank exited {p.returncode}:\n{err[-2000:]}")
+            line = [ln for ln in out.splitlines() if ln.startswith("RANK ")]
+            if not line:
+                fail(f"farm rank printed no RANK line:\n{out[-2000:]}")
+            ranks.append(json.loads(line[-1][5:]))
+        for r in ranks:
+            print(f"phase 9 farm rank {r['rank']}: device {r['device']}, "
+                  f"block offsets {r['offsets']}, K1 "
+                  f"{r['launches']['wide_model']} K2 "
+                  f"{r['launches']['wide_rans']} launches, compress_file "
+                  f"{r['ms']:.1f} ms", flush=True)
+            if r["device"] != str(device):
+                fail(f"farm rank {r['rank']} ran on {r['device']}")
+            if not (r["launches"]["wide_model"]
+                    and r["launches"]["wide_rans"]):
+                fail(f"farm rank {r['rank']}: K1 and K2 did not launch")
+            if r["jax_modules"]:
+                fail(f"farm rank {r['rank']} imported {r['jax_modules']}")
+        want = _entries(one)
+        got = _entries(two)
+        if got != want:
+            fail("farm: the two-process archive's entries differ from the "
+                 "one-process archive's")
+        if sorted(sum((r["offsets"] for r in ranks), [])) != sorted(got):
+            fail("farm: the ranks' stripes do not cover the archive")
+        WK.reset_launches()
+        args = cli.parse_args(["cli", "d", two, back, "-G"])
+        _, t_dec = timed(lambda: cli.decompress_file(
+            two, back, args, quiet=True, device=device))
+        dec = WK.LAUNCHES["wide_decode"]
+        if not dec:
+            fail("farm: cli d -G did not launch K3")
+        with open(back, "rb") as f:
+            if f.read() != data:
+                fail("farm: cli d -G did not restore the file")
+    print(f"phase 9 farm -m9 -e4: {len(data)} bytes in {len(want)} blocks,"
+          f" the two-process archive's entries equal the one-process "
+          f"archive's and decode with -G (K3 {dec} launches); one process "
+          f"{t_one:.1f} ms ({mb / t_one * 1e3:.2f} MB/s), two processes "
+          f"{t_two:.1f} ms from their start ({mb / t_two * 1e3:.2f} MB/s); "
+          f"decode -G {t_dec:.1f} ms; {card}", flush=True)
+    return {name: {"farm_one_process": one_launches.get(name, 0),
+                   "farm_two_processes": sum(r["launches"].get(name, 0)
+                                             for r in ranks),
+                   "farm_decode": dec if name == "wide_decode" else 0}
+            for name in V3}
+
+
+def dc3(data: bytes, features: int, device) -> None:
+    """Phase 9 (c): the LZP'd 25 MiB block through engine.bwt_encode with
+    TBSC_BWT_DEVICE=1, by prefix quadrupling (TBSC_BWT unset) and by DC3
+    (TBSC_BWT=dc3), in the turns prefix, dc3, dc3, prefix; U, primary and
+    aux must equal the native BWT's, and DEVICE_ROUTES must count both
+    routes.  Both variables are restored."""
+    import torch
+
+    from libbsc_tpu_torch import constants as C
+    from libbsc_tpu_torch import engine
+
+    lz = engine.lzp_compress(np.frombuffer(data, np.uint8),
+                             C.DEFAULT_LZPHASHSIZE, C.DEFAULT_LZPMINLEN,
+                             features)
+    lz = np.frombuffer(data, np.uint8) if lz is None else lz
+    ref = lz.copy()
+    primary, ni, aux = engine.bwt_encode(ref, features)
+    saved = {v: os.environ.get(v) for v in ("TBSC_BWT_DEVICE", "TBSC_BWT")}
+    ms = {"bwt_encode": [], "bwt_encode_dc3": []}
+    peak = {}
+    before = dict(engine.DEVICE_ROUTES)
+    try:
+        os.environ["TBSC_BWT_DEVICE"] = "1"
+        for route in ("bwt_encode", "bwt_encode_dc3", "bwt_encode_dc3",
+                      "bwt_encode"):
+            if route == "bwt_encode_dc3":
+                os.environ["TBSC_BWT"] = "dc3"
+            else:
+                os.environ.pop("TBSC_BWT", None)
+            buf = lz.copy()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            got, t = timed(lambda: engine.bwt_encode(buf, features, device))
+            peak[route] = torch.cuda.max_memory_allocated()
+            ms[route].append(t)
+            if got[:2] != (primary, ni) or not np.array_equal(
+                    got[2][:ni], aux[:ni]) or not np.array_equal(buf, ref):
+                fail(f"{route}: the device BWT differs from the native BWT")
+    finally:
+        for v, prior in saved.items():
+            if prior is None:
+                os.environ.pop(v, None)
+            else:
+                os.environ[v] = prior
+    counted = {r: engine.DEVICE_ROUTES[r] - before[r] for r in ms}
+    if counted != {"bwt_encode": 2, "bwt_encode_dc3": 2}:
+        fail(f"DEVICE_ROUTES counted {counted}, not two calls of each")
+    print(f"phase 9 dc3: a {len(lz)}-byte block, both routes equal to the "
+          f"native BWT; prefix quadrupling "
+          f"{', '.join(f'{t:.1f}' for t in ms['bwt_encode'])} ms, peak "
+          f"{peak['bwt_encode']} B; dc3 "
+          f"{', '.join(f'{t:.1f}' for t in ms['bwt_encode_dc3'])} ms, peak "
+          f"{peak['bwt_encode_dc3']} B; routes counted {counted}; {smi()}",
+          flush=True)
+
+
 def main() -> int:
     try:
         import torch
@@ -1199,11 +1454,19 @@ def main() -> int:
     st_device_path(data, features, device)
     cli_launches = cli_path(corpus[:2 * BLOCK + CLI_TAIL], features, device,
                             repo)
+    t9 = time.perf_counter()
+    sharded_st([corpus[i * BLOCK:(i + 1) * BLOCK] for i in range(2)],
+               features, device)
+    farm_launches = farm(corpus[:2 * BLOCK + CLI_TAIL], features, device,
+                         repo)
+    dc3(corpus[:BLOCK], features, device)
+    print(f"phase 9 took {time.perf_counter() - t9:.1f} s", flush=True)
     for r in rows:
         r.update(checked[r["name"]], launches=launches[r["name"]],
                  plain_at_bytes=PLAIN_BLOCK)
         if r["name"] in cli_launches:
             r["cli_launches"] = cli_launches[r["name"]]
+            r["farm_launches"] = farm_launches[r["name"]]
     for r in stats_rows:
         r.update(checked[r["name"]], launches=launches[r["name"]])
     print(json.dumps({"kernels": rows + stats_rows}))

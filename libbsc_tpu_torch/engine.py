@@ -28,7 +28,7 @@ from . import native
 _DEVICE_MIN_BLOCK = 1 << 20
 
 # Calls that took a device route with no kernel of its own to count them.
-DEVICE_ROUTES = {"bwt_encode": 0}
+DEVICE_ROUTES = {"bwt_encode": 0, "bwt_encode_dc3": 0}
 
 
 def num_threads(features: int) -> int:
@@ -69,23 +69,29 @@ def bwt_encode(data: np.ndarray, features: int, device=None):
 
     With ``device`` (the FEATURE_CUDA route), ``TBSC_BWT_DEVICE=1`` (read
     at each call, the JAX package's opt-in; the CLI's -G farm sets it) and
-    a block of 1 MiB or more, ``ops/bwt.bwt_encode`` sorts the block there
-    at its own length, with the format's aux rate, and
-    ``DEVICE_ROUTES["bwt_encode"]`` counts the call.  The JAX package pads
-    the block to a size bucket because XLA compiles a program per shape;
-    torch compiles nothing per shape, so there is no padding here.  A
-    device failure raises: there is no silent host fallback.  Every other
-    block sorts on the native runtime."""
+    a block of 1 MiB or more, the block sorts there at its own length, with
+    the format's aux rate: by ``ops/bwt.bwt_encode_dc3`` when ``TBSC_BWT``
+    is ``dc3`` (read at each call, as in the JAX package), else by
+    ``ops/bwt.bwt_encode``; ``DEVICE_ROUTES`` counts the call under the
+    function's name.  The JAX package pads the block to a size bucket
+    (unless ``TBSC_BWT_PAD=0``) because XLA compiles a program per shape;
+    torch compiles nothing per shape, so the exact shape is the only form
+    here and ``TBSC_BWT_PAD`` has nothing to switch.  A device failure
+    raises: there is no silent host fallback.  Every other block sorts on
+    the native runtime."""
     n = len(data)
     if (device is not None and n >= _DEVICE_MIN_BLOCK
             and os.environ.get("TBSC_BWT_DEVICE") == "1"):
         from .ops import bwt as opsbwt
 
-        U, primary, aux = opsbwt.bwt_encode(
+        route = ("bwt_encode_dc3"
+                 if os.environ.get("TBSC_BWT", "").lower() == "dc3"
+                 else "bwt_encode")
+        U, primary, aux = getattr(opsbwt, route)(
             torch.from_numpy(_as_c(data)).to(device))
         aux = aux.cpu().numpy()
         data[:] = U.cpu().numpy()
-        DEVICE_ROUTES["bwt_encode"] += 1
+        DEVICE_ROUTES[route] += 1
         return int(primary), int(aux.shape[0]), aux
     lib = native.load()
     ni = np.zeros(1, dtype=np.uint8)

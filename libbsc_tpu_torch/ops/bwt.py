@@ -1,9 +1,11 @@
 """Burrows-Wheeler transform on the device, in torch ops: the exact-shape
 forward transform at the format's aux rate and the wide-aux profile.
 
-Forward: suffix ranks by prefix quadrupling.  A depth-15 bootstrap sorts
-the first 15 bytes (plus the remaining length, so a suffix that is a
-prefix of another sorts first); each round then sorts by the 4-tuple
+Forward: suffix ranks by prefix quadrupling (:func:`bwt_encode`), or by
+the difference-cover sample sort DC3 (:func:`bwt_encode_dc3`, described
+above :func:`_dc3_sample_rank`).  A depth-15 bootstrap sorts the first
+15 bytes (plus the remaining length, so a suffix that is a prefix of
+another sorts first); each round then sorts by the 4-tuple
 (r(i), r(i+k), r(i+2k), r(i+3k)) and extends the resolved depth 4x.
 Ranks use the group-start convention (a group's rank is the sorted
 position of its first member), so a round can re-rank one unresolved
@@ -159,15 +161,12 @@ def _bucket_round_compact4(rank: torch.Tensor, uidx: torch.Tensor, k: int,
     return uidx_s[~(hall & nxt)]
 
 
-def suffix_array(data: torch.Tensor):
-    """Suffix array and ranks (ISA) of u8[n] by prefix quadrupling: full
-    rounds while more than n/4 suffixes are unresolved, then rounds over
-    the unresolved positions only."""
-    n = data.shape[0]
-    rank, mask = _bootstrap(data)
+def _refine(rank: torch.Tensor, mask: torch.Tensor, k: int, n: int):
+    """Quadrupling rounds from ranks resolved to step ``k``: full rounds
+    while more than n/4 of the n positions are unresolved, then rounds
+    over the unresolved positions only.  Returns the final ranks."""
     cnt = int(mask.sum())
     m1 = min(n, max(4096, n // 4))
-    k = _BOOT_DEPTH
     while cnt > m1 and k < 2 * n:
         rank, mask, cnt = _full_round4(rank, k, n)
         k *= 4
@@ -175,18 +174,171 @@ def suffix_array(data: torch.Tensor):
     while uidx.numel() > 0 and k < 2 * n:
         uidx = _bucket_round_compact4(rank, uidx, k, n)
         k *= 4
+    return rank
+
+
+def _sa_of(rank: torch.Tensor) -> torch.Tensor:
     sa = torch.empty_like(rank)
-    sa[rank] = torch.arange(n, device=data.device)
-    return sa, rank
+    sa[rank] = torch.arange(rank.shape[0], device=rank.device)
+    return sa
+
+
+def suffix_array(data: torch.Tensor):
+    """Suffix array and ranks (ISA) of u8[n] by prefix quadrupling."""
+    rank, mask = _bootstrap(data)
+    rank = _refine(rank, mask, _BOOT_DEPTH, data.shape[0])
+    return _sa_of(rank), rank
+
+
+# ---------------------------------------------------------------------------
+# Difference-cover (DC3) suffix sort: quadrupling over the 2n/3 sample
+# ---------------------------------------------------------------------------
+#
+# The JAX package's ops/bwt.py:526-751, libcubwt's algorithm family
+# (libcubwt.cu:644-738 builds the reduced arrays, :1875-2030 merges the
+# classes back):
+#
+# - sample = text positions p with p % 3 != 0, interleaved: reduced slot
+#   j = 2t+b  <->  text p = 3t+b+1 (b in {0,1}).  An even reduced step k
+#   advances 1.5k text bytes for every slot, so the prefix rounds apply
+#   with n -> m: the bootstrap resolves 15 text bytes, which is 10
+#   reduced slots, and each round quadruples the step.  Slots [0, m) are
+#   exactly the sample positions below n.
+# - merge: with rank_S total on the sample, (T[p], rank_S(p+1)) is an exact
+#   suffix comparator on C u S1 and (T[p]T[p+1], rank_S(p+2)) on C u S2
+#   (C = the p%3==0 class; every lookup lands in the sample).  One stable
+#   sort of each side and exclusive counts of C give every suffix its rank:
+#     rank(c in C)  = idx1(c) + (idx2(c) - C_before2(c))
+#     rank(s in S1) = rank_S(s) + C_before1(s)
+#     rank(s in S2) = rank_S(s) + C_before2(s)
+# - positions past the end rank n-1-p (strictly decreasing negatives), so a
+#   suffix that is a prefix of a longer one sorts first.
+
+
+def _dc3_sample_rank(data: torch.Tensor, n3: int, m: int) -> torch.Tensor:
+    """All-distinct group-start ranks of the m sample suffixes, in slot
+    order."""
+    n = data.shape[0]
+    L = 3 * n3
+    d = torch.zeros(L, dtype=torch.int64, device=data.device)
+    d[:n] = data  # bytes past the end read 0
+
+    def pbyte(j: int) -> torch.Tensor:
+        return _shifted(d, j, 0)
+
+    def red(a: torch.Tensor) -> torch.Tensor:
+        return a.view(n3, 3)[:, 1:].reshape(2 * n3)[:m]
+
+    words = []
+    for w in range(3):
+        acc = torch.zeros(L, dtype=torch.int64, device=data.device)
+        for j in range(4):
+            acc = (acc << 8) | pbyte(4 * w + j)
+        words.append(red(acc))
+    rem = torch.clamp(n - torch.arange(L, device=data.device), 1,
+                      _BOOT_DEPTH)
+    words.append(red((((pbyte(12) << 8 | pbyte(13)) << 8 | pbyte(14)) << 8)
+                     | rem))
+    k_hi = _pair_key(words[0], words[1], -(1 << 31))
+    k_lo = _pair_key(words[2], words[3], -(1 << 31))
+    pos_s = _lex_order(k_hi, k_lo)
+    rank, mask = _rank_mask_to_position_order(
+        _heads(k_hi[pos_s], k_lo[pos_s]), pos_s, m)
+    return _refine(rank, mask, 10, m)
+
+
+def _merge_class_sort(k_char, k_rank, pay, own):
+    """One merge side: stably sort C u S_b by (k_char, k_rank).  Returns
+    the sorted text positions, their sorted index, the C-class mask, the
+    exclusive count of C elements before each slot, and the sample ranks
+    carried through the sort.  |k_rank| < 2^31, so k_char * 2^32 + k_rank
+    orders the pair."""
+    order = torch.sort(_pair_key(k_char, k_rank), stable=True).indices
+    pay_s = pay[order]
+    is_c = (pay_s % 3) == 0
+    c_exc = torch.cumsum(is_c, 0) - is_c.long()
+    return (pay_s, torch.arange(pay.shape[0], device=pay.device), is_c,
+            c_exc, own[order])
+
+
+def _by_position(pay_s: torch.Tensor, v: torch.Tensor, n3: int):
+    """[n3, 2] grid of one merge side's values in text order: row t holds
+    the value of position 3t and of its sample partner (0 where absent)."""
+    grid = torch.zeros(2 * n3, dtype=v.dtype, device=v.device)
+    grid[2 * (pay_s // 3) + (pay_s % 3 != 0).long()] = v
+    return grid.view(n3, 2)
+
+
+def _dc3_rank(data: torch.Tensor) -> torch.Tensor:
+    """Position-ordered all-distinct suffix ranks of u8[n], n >= 64, by
+    DC3."""
+    n = data.shape[0]
+    dev = data.device
+    n3 = (n + 2) // 3
+    m = n - n3
+    L = 3 * n3
+
+    rank_red = _dc3_sample_rank(data, n3, m)
+
+    # sample ranks in text coordinates, past-the-end positions ranking
+    # n-1-p
+    cols = torch.zeros(2 * n3, dtype=torch.int64, device=dev)
+    cols[:m] = rank_red
+    cols = cols.view(n3, 2)
+    posL = torch.arange(L + 2, device=dev)
+    rs_full = n - 1 - posL
+    rs_full[:n] = torch.stack([torch.zeros_like(cols[:, 0]), cols[:, 0],
+                               cols[:, 1]], 1).reshape(L)[:n]
+
+    dpadL = torch.zeros(L + 2, dtype=torch.int64, device=dev)
+    dpadL[:n] = data
+    dmat = dpadL[:L].view(n3, 3)
+    rsmat = rs_full[:L].view(n3, 3)
+
+    m_s1 = (n + 1) // 3           # positions 3t+1 < n
+    m_s2 = m - m_s1               # positions 3t+2 < n
+    three = 3 * torch.arange(n3, device=dev)
+    zeros = torch.zeros(n3, dtype=torch.int64, device=dev)
+
+    # sort 1: C u S1 by (T[p], rank_S(p+1))
+    pay_s, i1, is_c1, c_exc1, own_s1 = _merge_class_sort(
+        torch.cat([dmat[:, 0], dmat[:m_s1, 1]]),
+        torch.cat([rsmat[:, 1], rsmat[:m_s1, 2]]),
+        torch.cat([three, three[:m_s1] + 1]),
+        torch.cat([zeros, rsmat[:m_s1, 1]]))
+    grid1 = _by_position(pay_s, torch.where(is_c1, i1, own_s1 + c_exc1), n3)
+
+    # sort 2: C u S2 by (T[p]T[p+1], rank_S(p+2))
+    t_next = dpadL[3::3][:n3]                       # T[3(t+1)]
+    rs_next1 = rs_full[4::3][:n3]                   # rank_S(3t+4)
+    pay_s2, i2, is_c2, c_exc2, own_s2 = _merge_class_sort(
+        torch.cat([(dmat[:, 0] << 8) | dmat[:, 1],
+                   (dmat[:m_s2, 2] << 8) | t_next[:m_s2]]),
+        torch.cat([rsmat[:, 2], rs_next1[:m_s2]]),
+        torch.cat([three, three[:m_s2] + 2]),
+        torch.cat([zeros, rsmat[:m_s2, 2]]))
+    grid2 = _by_position(pay_s2, torch.where(is_c2, i2 - c_exc2,
+                                             own_s2 + c_exc2), n3)
+
+    # C ranks add the two sides' contributions; S ranks are final
+    return torch.stack([grid1[:, 0] + grid2[:, 0], grid1[:, 1], grid2[:, 1]],
+                       1).reshape(L)[:n]
+
+
+def suffix_array_dc3(data: torch.Tensor):
+    """Suffix array and ranks of u8[n] by DC3 (blocks under 64 bytes by
+    :func:`suffix_array`)."""
+    if data.shape[0] < 64:
+        return suffix_array(data)
+    rank = _dc3_rank(data)
+    return _sa_of(rank), rank
 
 
 def _extract_bwt_impl(data: torch.Tensor, rank: torch.Tensor, r: int):
     """U + primary + aux from position-ordered ranks; ``r`` is the aux
     sampling rate."""
     n = data.shape[0]
-    sa = torch.empty_like(rank)
-    sa[rank] = torch.arange(n, device=data.device)
-    A = torch.roll(data, 1)[sa]  # T[SA[j]-1]; T[n-1] for suffix 0
+    A = torch.roll(data, 1)[_sa_of(rank)]  # T[SA[j]-1]; T[n-1] for suffix 0
     r0 = rank[0]
     w = torch.arange(n, device=data.device)
     U = torch.where(w <= r0, torch.roll(A, 1), A)
@@ -206,6 +358,16 @@ def bwt_encode(data: torch.Tensor):
                 torch.zeros(0, dtype=torch.int32, device=data.device))
     _, rank = suffix_array(data)
     return _extract_bwt_impl(data, rank, aux_rate(n))
+
+
+def bwt_encode_dc3(data: torch.Tensor):
+    """Forward BWT of u8[n] by the DC3 suffix sort, at the format's aux
+    rate; the same result as :func:`bwt_encode` (blocks under 64 bytes
+    go there)."""
+    n = data.shape[0]
+    if n < 64:
+        return bwt_encode(data)
+    return _extract_bwt_impl(data, _dc3_rank(data), aux_rate(n))
 
 
 def bwt_encode_wideaux_device(data: torch.Tensor, r: int):

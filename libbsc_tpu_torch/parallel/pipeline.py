@@ -25,12 +25,17 @@ grid of ``torch.device``s.
      because every device runs the same program; one controller sorts it
      once.
 The rows are driven one after another from this process.
+
+:func:`make_sharded_st_step` is the other step: ST-k of each block sorted
+where it lies, a sample sort over the sp members with no gather of the
+block (see its docstring).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from ..ops import bwt as opsbwt
@@ -164,5 +169,177 @@ def make_transform_step(mesh: Mesh, sorter: str = "st", k: int = 5):
                              .to(x.device).contiguous()
                              for s, x in enumerate(row)])
         return out_grid, idx_rows, hist_rows
+
+    return step
+
+
+# ---------------------------------------------------------------------------
+# ST-k of one block sharded over sp: a sample sort
+# ---------------------------------------------------------------------------
+
+_HASH = 2654435761  # the multiplicative hash of the JAX step's deal
+
+
+def _sample_positions(nl: int, n_samples: int) -> list:
+    """Each member's sample positions within its shard: one per stride
+    cell, at a fixed pseudo-random offset in the cell, so a periodic block
+    whose period divides the stride does not put every sample in one
+    context class."""
+    r = min(n_samples, nl)
+    cell = max(1, nl // r)
+    return [min((j * nl) // r + (j * _HASH) % cell, nl - 1)
+            for j in range(r)]
+
+
+def _shard_keys(ext: torch.Tensor, k: int) -> torch.Tensor:
+    """int64 context keys of the nl = len(ext) - 8 positions of a shard
+    extended by the next member's first 8 bytes: bytes 0..k-1 packed
+    big-endian from bit 56 down, the sign bit flipped, so the signed order
+    is the unsigned order of the JAX step's (hi, lo) pair."""
+    nl = ext.shape[0] - 8
+    d = ext.long()
+    key = torch.zeros(nl, dtype=torch.int64, device=ext.device)
+    for j in range(k):
+        key |= d[j:j + nl] << (56 - 8 * j)
+    return key ^ opsst._SIGN
+
+
+def make_sharded_st_step(mesh: Mesh, k: int = 8, n_samples: int = 128,
+                         slack_frac: int = 4):
+    """ST-k of each block sorted where its shards lie: a sample sort over
+    the sp members of each row, with no gather of the block.
+
+    It takes the grid of :func:`shard` and returns (transformed shards,
+    grid ``[d][s]`` of u8 [B/dp, n/sp] on the members' devices; the index
+    of each block, list ``[d]`` of i32 [B/dp] on the row's first device;
+    ``ok``, list ``[d]`` of bool [B/dp]).  Output and index are those of
+    ``ops/st.st_encode`` of the whole block, whatever ``ok`` says.
+
+    Per block, with S members of nl bytes each:
+      1. context keys where the shard lies: member s's context wraps into
+         member (s+1) mod S's first 8 bytes, its first preceding byte is
+         member (s-1) mod S's last;
+      2. splitters: every R-th of the S*R (key, global position) pairs
+         of the members' R jittered samples each, sorted; the pairs are
+         distinct (the position breaks ties), so an all-equal block
+         splits by position;
+      3. bucket = the number of splitters at or below (key, position);
+         each member partitions its positions stably by bucket (one sort
+         of the small bucket ids), and one read of the [S, S, S] count
+         matrix gives every segment's true size;
+      4. member b receives every member's bucket-b segment in member order,
+         which is position order, so one stable sort of the key alone gives
+         (key, position) order;
+      5. member s's output is global ranks [s nl, (s+1) nl) of the sorted
+         ranges joined in member order; the index is the rank of position
+         0, found by counting the keys below its key in its bucket.
+
+    The JAX step pads every exchange to a fixed capacity, as XLA needs
+    static shapes, first deals the positions to members by a hash of the
+    position so the capacities hold, and rebalances the output by edge
+    windows.  One controller sends each segment at its own size instead,
+    so none of that data moves here; ``ok`` still reports whether the JAX
+    step's capacities would hold (deal cells ``nl//S + max(64,
+    nl//(4S))``, buckets ``nl//S + nl//slack_frac``, edge windows of the
+    bucket capacity), computed from the counts, so a caller that falls
+    back to :func:`make_transform_step` on ``ok == False`` does so in both
+    packages alike."""
+    S = mesh.shape["sp"]
+    opsst._check_k(k)
+
+    def one_block(xs: list):
+        """xs: this block's S shards, u8 [nl] each on its member's device.
+        Returns (the S output shards, index 0-dim i32 on member 0's
+        device, ok)."""
+        nl = xs[0].shape[0]
+        if nl < 8:
+            raise ValueError(f"sharded ST needs shards of 8 bytes or more, "
+                             f"got {nl}")
+        devs = [x.device for x in xs]
+        head = devs[0]
+        spos = _sample_positions(nl, n_samples)
+        keys, prevs, gposs = [], [], []
+        for s, x in enumerate(xs):
+            nxt, prv = xs[(s + 1) % S], xs[(s - 1) % S]
+            keys.append(_shard_keys(torch.cat([x, nxt[:8].to(x.device)]), k))
+            prevs.append(torch.cat([prv[-1:].to(x.device), x[:-1]]))
+            gposs.append(torch.arange(s * nl, (s + 1) * nl,
+                                      device=x.device))
+        # splitters, on the head
+        sp_at = torch.tensor(spos, device=head)
+        s_key = torch.cat([kk[sp_at.to(kk.device)].to(head) for kk in keys])
+        s_gp = torch.cat([g[sp_at.to(g.device)].to(head) for g in gposs])
+        order = opsbwt._lex_order(s_key, s_gp)
+        q = torch.tensor([(t + 1) * len(spos) for t in range(S - 1)],
+                         dtype=torch.long, device=head)
+        sp_key, sp_gp = s_key[order][q], s_gp[order][q]
+        # buckets, deal cells and the stable partition, where the data lie
+        parts, cells, buckets = [], [], []
+        for s in range(S):
+            key, gpos = keys[s], gposs[s]
+            a, c = sp_key.to(devs[s]), sp_gp.to(devs[s])
+            bucket = torch.zeros(nl, dtype=torch.int16, device=devs[s])
+            for t in range(S - 1):
+                bucket += ((key > a[t]) | ((key == a[t]) & (gpos >= c[t])))
+            deal = (((gpos * _HASH) & 0xFFFFFFFF) >> 16) % S
+            cells.append(torch.bincount(deal * S + bucket, minlength=S * S)
+                         .to(head))
+            perm = torch.sort(bucket, stable=True).indices
+            parts.append((key[perm], prevs[s][perm]))
+            buckets.append(bucket)
+        # the one read: [source, deal cell, bucket] counts and position 0's
+        # bucket
+        got = torch.cat(cells + [buckets[0][:1].long().to(head)]).tolist()
+        cnt3 = np.asarray(got[:-1], dtype=np.int64).reshape(S, S, S)
+        b0 = got[-1]
+        seg = cnt3.sum(1)                    # [source, bucket]
+        seg_off = (np.cumsum(seg, 1) - seg).tolist()
+        cnt = seg.sum(0)                     # elements of each bucket
+        offs = np.cumsum(cnt) - cnt
+        me = np.arange(S) * nl
+        cap = nl // S + nl // slack_frac
+        ok = bool(cnt3.sum(2).max() <= nl // S + max(64, nl // (4 * S))
+                  and cnt3.sum(0).max() <= cap
+                  and np.all(offs - me < cap)
+                  and np.all(me + nl - offs - cnt < cap))
+        seg, cnt, offs = seg.tolist(), cnt.tolist(), offs.tolist()
+        # exchange and sort each bucket on its member
+        ranges = []
+        for b in range(S):
+            cut = [slice(seg_off[s][b], seg_off[s][b] + seg[s][b])
+                   for s in range(S)]
+            kb = torch.cat([parts[s][0][cut[s]].to(devs[b])
+                            for s in range(S)])
+            pb = torch.cat([parts[s][1][cut[s]].to(devs[b])
+                            for s in range(S)])
+            o = torch.sort(kb, stable=True).indices
+            ranges.append(pb[o])
+            if b == b0:  # position 0 sorts first among its equal keys
+                index = (offs[b] + (kb < keys[0][0].to(devs[b])).sum()) \
+                    .to(torch.int32).to(head)
+        # member s takes global ranks [s nl, (s+1) nl)
+        outs = []
+        for s in range(S):
+            lo, hi = s * nl, (s + 1) * nl
+            pieces = [ranges[b][max(lo, offs[b]) - offs[b]:
+                                min(hi, offs[b] + cnt[b]) - offs[b]]
+                      .to(devs[s]) for b in range(S)
+                      if offs[b] < hi and offs[b] + cnt[b] > lo]
+            outs.append(torch.cat(pieces))
+        return outs, index, ok
+
+    def step(grid: list):
+        out_grid, idx_rows, ok_rows = [], [], []
+        for row in grid:
+            head = row[0].device
+            res = [one_block([x[b] for x in row])
+                   for b in range(row[0].shape[0])]
+            out_grid.append([torch.stack([r[0][s] for r in res])
+                             for s in range(S)])
+            idx_rows.append(torch.stack([r[1] for r in res]))
+            ok_rows.append(torch.full((len(res),),
+                                      all(r[2] for r in res),
+                                      dtype=torch.bool, device=head))
+        return out_grid, idx_rows, ok_rows
 
     return step

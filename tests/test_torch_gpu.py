@@ -1,9 +1,10 @@
 """The CUDA kernels K1-K7 against their plain PyTorch versions on the card,
 at small size, the fused -m9 -e4 -G route through them (v3 and v2 coder),
 the pipelined many-block entry points, the sharded transform step on a
-one-GPU mesh (K6 in its stage 1), the -m5 -G device ST route, and the
+one-GPU mesh (K6 in its stage 1), the -m5 -G device ST route, the
 CLI: -m9 -e4 -G through K1, K2 and K3, and the -G default config through
-the device BWT.
+the device BWT, the sample-sort ST step on a mesh that lists cuda:0
+twice, and the DC3 device BWT.
 
 These tests need a CUDA device and skip without one.  tests/conftest.py
 imports JAX, which a GPU machine need not have, so run them there with
@@ -443,3 +444,35 @@ def test_cli_gpu_default_config_entries_equal_host(cuda, tmp_path):
     back = tmp_path / "r"
     cli.decompress_file(str(tmp_path / "dev.bsc"), str(back), q, quiet=True)
     assert back.read_bytes() == data
+
+
+@pytest.mark.parametrize("k", [5, 8])
+def test_sharded_st_step_on_one_gpu_twice(cuda, k):
+    """The sample-sort ST step on a (1, 2) mesh that lists cuda:0 twice
+    equals the native ST of the whole block, with ok True."""
+    from libbsc_tpu_torch import engine
+    from libbsc_tpu_torch.parallel import (make_mesh, make_sharded_st_step,
+                                           shard, unshard)
+
+    data = np.frombuffer(_text(2 << 20, 68), np.uint8)
+    mesh = make_mesh(2, dp=1, sp=2, devices=[cuda] * 2)
+    out, idx, ok = make_sharded_st_step(mesh, k=k)(
+        shard(torch.from_numpy(data[None].copy()), mesh))
+    assert out[0][0].device == cuda and bool(unshard(ok).all())
+    ref = data.copy()
+    index = engine.st_encode(ref, k, C.FEATURE_MULTITHREADING)
+    assert unshard(out)[0].numpy().tobytes() == ref.tobytes()
+    assert int(unshard(idx)[0]) == index
+
+
+def test_dc3_bwt_equals_native_at_1_mib(cuda):
+    from libbsc_tpu_torch import engine
+    from libbsc_tpu_torch.ops import bwt
+
+    data = np.frombuffer(_text(1 << 20, 69), np.uint8).copy()
+    U, primary, aux = bwt.bwt_encode_dc3(torch.from_numpy(data).to(cuda))
+    ref = data.copy()
+    ref_primary, ni, ref_aux = engine.bwt_encode(ref, C.FEATURE_MULTITHREADING)
+    assert U.cpu().numpy().tobytes() == ref.tobytes()
+    assert int(primary) == ref_primary
+    assert np.array_equal(aux.cpu().numpy(), ref_aux[:ni])
