@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Quickest proof that the PyTorch/CUDA port runs on the GPU.
 
-    python3 chip_smoke.py            # one CUDA card, about eight minutes
+    python3 chip_smoke.py            # one CUDA card, about nine minutes
 
 Phases, one line or more each:
   1. build: the CUDA kernels (one nvcc per csrc/*.cu, all started together)
@@ -90,6 +90,29 @@ Phases, one line or more each:
      DC3, in turns (prefix, dc3, dc3, prefix), each equal to the native
      BWT, timed, with its peak device memory; DEVICE_ROUTES must count
      both; both variables are restored.
+ 10. the last modules (each variable and engine._force it sets is
+     restored): (a) TBSC_ENGINE=ops (engine._force) on the 25 MiB block,
+     default config, no FEATURE_CUDA: DEVICE_ROUTES must count one
+     bwt_encode and one bwt_decode (the list-ranking inverse), the
+     archive must equal the native engine's and come back; the list
+     ranking timed on the block's BWT against the native
+     tbsc_bwt_decode, in turns, with its peak device memory; -m9 -e4
+     under ops: K1-K3 launched, phase 3's archive; (b) TBSC_ENGINE=numpy
+     through `python3 -m libbsc_tpu_torch.cli` (under runpy, so each
+     process prints whether it loaded the native runtime: it must not)
+     on a 128 KiB file with -e0, -e1, -e2, -m5 and -e4, e then d: exit
+     0, the file back, every container entry equal to the native
+     engine's (-e4, the wide coder's reference with equal lanes: decoded
+     by the native engine instead); (c) ops/bwt.bwt_encode_fast on the
+     LZP'd block, equal to the native BWT, timed beside bwt_encode, and
+     TBSC_WIDE_DEV_SCHED's device_schedule on its BWT: planes and payload
+     equal to the native walker's; (d) ops/wide_rc, 256 lanes x 1,000
+     bits on the card: each stream equal to the serial RcEncoder's, the
+     bits decoded back; (e) TBSC_TRACE over one -m9 -e4 -G compress and
+     decompress: stage lines printed, summing to at most each call's
+     wall time; then untraced under TBSC_PROFILE: the torch.profiler
+     trace must hold K1-K3's CUDA kernels, and the device's busy share
+     over that window is printed.
 
 Phase 2 also holds K6 (byte histogram) and K7 (Adler-32 partials) against
 their plain versions on the 4 MiB check block, an all-zero 4 MiB block and
@@ -1391,6 +1414,380 @@ def dc3(data: bytes, features: int, device) -> None:
           flush=True)
 
 
+# The CLI as __main__ under runpy, then whether it loaded the native
+# runtime (stderr): phase 10 (b)'s processes show they did not.
+NUMPY_CLI = (
+    "import runpy, sys\n"
+    "sys.argv = ['libbsc_tpu_torch.cli'] + sys.argv[1:]\n"
+    "try:\n"
+    "    runpy.run_module('libbsc_tpu_torch.cli', run_name='__main__',\n"
+    "                     alter_sys=True)\n"
+    "finally:\n"
+    "    from libbsc_tpu_torch import native\n"
+    "    print('native loaded:', native._lib is not None, file=sys.stderr)\n")
+NUMPY_FILE = 128 * 1024      # phase 10 (b)'s file
+RC_LANES, RC_BITS = 256, 1000  # phase 10 (d)'s lockstep range coder
+
+
+def ops_engine(data: bytes, features: int, device, phase3: bytes) -> None:
+    """Phase 10 (a): TBSC_ENGINE=ops (engine._force) on the 25 MiB block
+    with the default config and no FEATURE_CUDA: DEVICE_ROUTES must count
+    one bwt_encode and one bwt_decode, the archive must equal the native
+    engine's and come back; the list-ranking inverse timed on the
+    block's BWT against the native tbsc_bwt_decode (device, native,
+    native, device), with peak device memory; then -m9 -e4 under ops:
+    K1-K3 must launch and the archive must equal phase 3's."""
+    import torch
+
+    import libbsc_tpu_torch as P
+    from libbsc_tpu_torch import constants as C
+    from libbsc_tpu_torch import engine
+    from libbsc_tpu_torch.ops import bwt
+    from libbsc_tpu_torch.ops import wide_kernels as WK
+
+    feats = features & ~C.FEATURE_CUDA
+    P.init(feats, device=device)
+    want = P.compress(data)
+    lz = engine.lzp_compress(np.frombuffer(data, np.uint8),
+                             C.DEFAULT_LZPHASHSIZE, C.DEFAULT_LZPMINLEN,
+                             feats)
+    lz = np.frombuffer(data, np.uint8).copy() if lz is None else lz
+    U = lz.copy()
+    primary, ni, aux = engine.bwt_encode(U, feats)  # native
+    saved = engine._force
+    try:
+        engine._force = "ops"
+        before = dict(engine.DEVICE_ROUTES)
+        archive, t_enc = timed(lambda: P.compress(data))
+        back, t_dec = timed(lambda: P.decompress(archive))
+        counted = {k: engine.DEVICE_ROUTES[k] - before[k]
+                   for k in ("bwt_encode", "bwt_decode")}
+        if counted != {"bwt_encode": 1, "bwt_decode": 1}:
+            fail(f"ops: DEVICE_ROUTES counted {counted}")
+        if archive != want:
+            fail("ops: the default-config archive differs from the native "
+                 "engine's")
+        if back != data:
+            fail("ops: the default-config block did not come back")
+        ms = {"device": [], "native": []}
+        peak = 0
+        u_dev = torch.from_numpy(U).to(device)
+        for turn in ("device", "native", "native", "device"):
+            if turn == "device":
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                out, t = timed(lambda: bwt.bwt_decode(u_dev, primary))
+                peak = max(peak, torch.cuda.max_memory_allocated() - base)
+                ok = np.array_equal(out.cpu().numpy(), lz)
+            else:
+                buf = U.copy()
+                rc, t = timed(lambda: engine.bwt_decode(buf, primary, ni,
+                                                        aux, feats))
+                ok = rc == 0 and np.array_equal(buf, lz)
+            if not ok:
+                fail(f"the {turn} inverse BWT did not restore the block")
+            ms[turn].append(t)
+        del u_dev
+        WK.reset_launches()
+        kw = dict(block_sorter=C.BLOCKSORTER_BWT_WIDEAUX,
+                  coder=C.CODER_QLFC_WIDE)
+        wide_archive, t9_enc = timed(lambda: P.compress(data, **kw))
+        wide_back, t9_dec = timed(lambda: P.decompress(wide_archive))
+        launches = dict(WK.LAUNCHES)
+    finally:
+        engine._force = saved
+    if min(launches[k] for k in V3) == 0:
+        fail(f"ops -m9 -e4: K1-K3 did not all launch: {launches}")
+    if wide_archive != phase3:
+        fail("ops -m9 -e4: the archive differs from phase 3's")
+    if wide_back != data:
+        fail("ops -m9 -e4: the block did not come back")
+    mb = len(data) / 1e6
+    print(f"phase 10 (a) ops default config: {len(data)} -> {len(archive)} "
+          f"bytes, equal to the native engine's; encode "
+          f"{mb / t_enc * 1e3:.2f} MB/s ({t_enc:.1f} ms), decode "
+          f"{mb / t_dec * 1e3:.2f} MB/s ({t_dec:.1f} ms); routes {counted}; "
+          f"inverse BWT of the {len(lz)}-byte block: list ranking "
+          f"{', '.join(f'{t:.1f}' for t in ms['device'])} ms (peak "
+          f"{peak} B over the block), native tbsc_bwt_decode "
+          f"{', '.join(f'{t:.1f}' for t in ms['native'])} ms; ops -m9 -e4: "
+          f"phase 3's archive, encode {t9_enc:.1f} ms, decode "
+          f"{t9_dec:.1f} ms, launches {launches}; {smi()}", flush=True)
+
+
+def numpy_engine(data: bytes, repo: str) -> None:
+    """Phase 10 (b): TBSC_ENGINE=numpy through the CLI, as subprocesses,
+    on a 128 KiB file with -e0, -e1, -e2, -m5 and -e4 (the encodes
+    started together, then the decodes): each must exit 0 without
+    loading the native runtime and restore the file, and each container
+    entry must equal the native engine's archive's.  -e4 is the wide
+    coder's Python reference, whose lanes are equal-sized, so its
+    entries differ from the native codec's by design: its archive must
+    decode through the native engine here instead."""
+    import tempfile
+
+    from libbsc_tpu_torch import cli
+
+    configs = (["-e0"], ["-e1"], ["-e2"], ["-m5"], ["-e4"])
+    env = dict(os.environ, PYTHONPATH=repo, TBSC_ENGINE="numpy")
+    with tempfile.TemporaryDirectory() as tmp:
+        inp = os.path.join(tmp, "in")
+        with open(inp, "wb") as f:
+            f.write(data)
+        names = [f"c{i}" for i in range(len(configs))]
+        want = {}
+        for name, sw in zip(names, configs):
+            arch = os.path.join(tmp, name + ".native")
+            cli.compress_file(inp, arch, cli.parse_args(
+                ["cli", "e", inp, arch, *sw]), quiet=True)
+            want[name] = _entries(arch)
+        secs = {}
+        for step in ("e", "d"):
+            procs = {}
+            t0 = time.perf_counter()
+            for name, sw in zip(names, configs):
+                arch = os.path.join(tmp, name + ".numpy")
+                args = ([inp, arch, *sw] if step == "e"
+                        else [arch, os.path.join(tmp, name + ".back")])
+                procs[name] = subprocess.Popen(
+                    [sys.executable, "-c", NUMPY_CLI, step, *args],
+                    cwd=repo, env=env, stdout=subprocess.PIPE,
+                    stderr=subprocess.PIPE, text=True)
+            for name, proc in procs.items():
+                out, err = proc.communicate(timeout=600)
+                secs[name, step] = time.perf_counter() - t0
+                if proc.returncode != 0:
+                    fail(f"numpy cli {step} {name}: exit "
+                         f"{proc.returncode}:\n{err[-2000:]}")
+                if "native loaded: False" not in err:
+                    fail(f"numpy cli {step} {name} loaded the native "
+                         f"runtime:\n{err[-2000:]}")
+        for name, sw in zip(names, configs):
+            arch = os.path.join(tmp, name + ".numpy")
+            if sw == ["-e4"]:
+                back = os.path.join(tmp, name + ".native_back")
+                cli.decompress_file(arch, back, cli.parse_args(
+                    ["cli", "d", arch, back]), quiet=True)
+                with open(back, "rb") as f:
+                    if f.read() != data:
+                        fail("numpy cli -e4: the native engine did not "
+                             "decode the reference codec's archive")
+            elif _entries(arch) != want[name]:
+                fail(f"numpy cli {' '.join(sw)}: entries differ from the "
+                     "native engine's")
+            with open(os.path.join(tmp, name + ".back"), "rb") as f:
+                if f.read() != data:
+                    fail(f"numpy cli {' '.join(sw)}: the file did not "
+                         "come back")
+    print("phase 10 (b) numpy engine cli: " + "; ".join(
+        f"{' '.join(sw)} e {secs[n, 'e']:.1f} s, d {secs[n, 'd']:.1f} s"
+        for n, sw in zip(names, configs)) + f" (each step's processes run "
+          f"together; seconds from the step's start), {len(data)} bytes, "
+          f"entries equal to the native engine's (-e4: decoded by it), "
+          f"native runtime not loaded; {smi()}", flush=True)
+
+
+def encode_fast(data: bytes, features: int, device) -> None:
+    """Phase 10 (c): bwt_encode_fast on the LZP'd 25 MiB block, equal to
+    the native BWT, timed beside bwt_encode (turns: bwt_encode, fast,
+    fast, bwt_encode)."""
+    import torch
+
+    from libbsc_tpu_torch import constants as C
+    from libbsc_tpu_torch import engine
+    from libbsc_tpu_torch.ops import bwt
+
+    lz = engine.lzp_compress(np.frombuffer(data, np.uint8),
+                             C.DEFAULT_LZPHASHSIZE, C.DEFAULT_LZPMINLEN,
+                             features)
+    lz = np.frombuffer(data, np.uint8).copy() if lz is None else lz
+    ref = lz.copy()
+    primary, ni, aux = engine.bwt_encode(ref, features)
+    d = torch.from_numpy(lz.copy()).to(device)
+    ms = {"bwt_encode": [], "bwt_encode_fast": []}
+    for name in ("bwt_encode", "bwt_encode_fast", "bwt_encode_fast",
+                 "bwt_encode"):
+        (U, p, a), t = timed(lambda: getattr(bwt, name)(d))
+        ms[name].append(t)
+        if int(p) != primary or not np.array_equal(
+                U.cpu().numpy(), ref) or not np.array_equal(
+                a.cpu().numpy(), aux[:ni]):
+            fail(f"{name} differs from the native BWT")
+    print(f"phase 10 (c) bwt_encode_fast: a {len(lz)}-byte block, equal to "
+          f"the native BWT; fast "
+          f"{', '.join(f'{t:.1f}' for t in ms['bwt_encode_fast'])} ms, "
+          f"bwt_encode {', '.join(f'{t:.1f}' for t in ms['bwt_encode'])} "
+          f"ms; {smi()}", flush=True)
+    sched_payloads(ref.tobytes(), device)
+
+
+def sched_payloads(u: bytes, device) -> None:
+    """Phase 10 (c): TBSC_WIDE_DEV_SCHED routes the per-stage
+    wide_kernels.device_encode's bit schedule to the card
+    (wide_schedule.device_schedule, the JAX package's v1): its planes and
+    payload must equal the native walker's route on the BWT'd block.
+    The variable is restored."""
+    import torch
+
+    from libbsc_tpu_torch.ops import wide_kernels as WK
+
+    saved = os.environ.get("TBSC_WIDE_DEV_SCHED")
+    try:
+        os.environ.pop("TBSC_WIDE_DEV_SCHED", None)
+        host, t_host = timed(lambda: WK._host_prep(u, device))
+        want = WK.device_encode(u, device)
+        os.environ["TBSC_WIDE_DEV_SCHED"] = "1"
+        dev, t_dev = timed(lambda: WK._host_prep(u, device))
+        got = WK.device_encode(u, device)
+    finally:
+        if saved is None:
+            os.environ.pop("TBSC_WIDE_DEV_SCHED", None)
+        else:
+            os.environ["TBSC_WIDE_DEV_SCHED"] = saved
+    if host is None or not isinstance(dev[0], torch.Tensor):
+        fail("TBSC_WIDE_DEV_SCHED: the schedule did not run on the card")
+    if not np.array_equal(dev[0].cpu().numpy(), host[0]) or \
+            dev[2] != host[2] or got != want or want is None:
+        fail("TBSC_WIDE_DEV_SCHED: planes or payload differ from the "
+             "native walker's")
+    print(f"phase 10 (c) device_schedule: TBSC_WIDE_DEV_SCHED planes and "
+          f"payload equal to the native walker's ({host[2]} iterations); "
+          f"schedule on the card {t_dev:.1f} ms, native lane table and "
+          f"walker {t_host:.1f} ms; {smi()}", flush=True)
+
+
+def lockstep_rc(device) -> None:
+    """Phase 10 (d): ops/wide_rc on the card, RC_LANES lanes of RC_BITS
+    bits: each lane's stream must equal the serial RcEncoder's, and the
+    decode must return the bits."""
+    from libbsc_tpu_torch.fallback.qlfc import RcEncoder
+    from libbsc_tpu_torch.ops import wide_rc
+
+    g = np.random.default_rng(0xAC)
+    lanes = [[(int(b), int(p), int(q)) for b, p, q in zip(
+        g.integers(0, 2, RC_BITS), g.integers(1, 2047, RC_BITS),
+        g.choice([11, 12, 13], RC_BITS))] for _ in range(RC_LANES)]
+    streams, t_enc = timed(lambda: wide_rc.encode(lanes, device=device))
+    for seq, stream in zip(lanes, streams):
+        rc = RcEncoder(1 << 20)
+        for b, p, q in seq:
+            rc.encode(b, p, q)
+        if stream != rc.finish():
+            fail("wide_rc: a lane's stream differs from RcEncoder's")
+    probs = [[(p, q) for _, p, q in seq] for seq in lanes]
+    bits, t_dec = timed(lambda: wide_rc.decode(probs, streams,
+                                               device=device))
+    if bits != [[b for b, _, _ in seq] for seq in lanes]:
+        fail("wide_rc: the decode did not return the bits")
+    print(f"phase 10 (d) wide_rc: {RC_LANES} lanes x {RC_BITS} bits on "
+          f"{device}, every stream equal to RcEncoder's and decoded; "
+          f"encode {t_enc:.1f} ms, decode {t_dec:.1f} ms; {smi()}",
+          flush=True)
+
+
+def _busy_share(events: list):
+    """(device busy microseconds, the traced window's microseconds): the
+    union of the kernel, copy and set intervals, and the span of every
+    stage range (``tbsc::<stage>``), host op, runtime call and device
+    interval in the trace (the profiler starts recording after its own
+    start-up, at the first stage)."""
+    dev = ("kernel", "gpu_memcpy", "gpu_memset")
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                   if e.get("cat") in dev)
+    busy, end = 0.0, float("-inf")
+    for s, t in spans:
+        if t > end:
+            busy += t - max(s, end)
+            end = t
+    window = [(e["ts"], e["ts"] + e["dur"]) for e in events
+              if e.get("cat") in dev + ("cpu_op", "cuda_runtime",
+                                        "user_annotation")]
+    return busy, max(t for _, t in window) - min(s for s, _ in window)
+
+
+def traced(data: bytes, features: int, device) -> None:
+    """Phase 10 (e): TBSC_TRACE over one -m9 -e4 -G compress and
+    decompress of the 25 MiB block: the stage lines must print and sum to
+    at most each call's wall time.  Then, untraced, with TBSC_PROFILE: the
+    trace file must hold the CUDA kernels of K1-K3, and the device's busy
+    share over the profiled window is printed."""
+    import contextlib
+    import io
+    import tempfile
+
+    import torch
+
+    import libbsc_tpu_torch as P
+    from libbsc_tpu_torch import constants as C
+    from libbsc_tpu_torch.utils import trace
+
+    P.init(features, device=device)
+    kw = dict(block_sorter=C.BLOCKSORTER_BWT_WIDEAUX,
+              coder=C.CODER_QLFC_WIDE)
+    sums, walls, lines = {}, {}, {}
+    saved = trace.TRACE, trace._PROFILE_DIR
+    try:
+        trace.TRACE = True
+        for step in ("compress", "decompress"):
+            err = io.StringIO()
+            with contextlib.redirect_stderr(err):
+                if step == "compress":
+                    archive, walls[step] = timed(lambda: P.compress(data,
+                                                                    **kw))
+                else:
+                    back, walls[step] = timed(lambda: P.decompress(archive))
+            lines[step] = [ln for ln in err.getvalue().splitlines()
+                           if ln.startswith("[tbsc] ")]
+            sums[step] = sum(float(ln.split()[3][:-1]) * 1e3
+                             for ln in lines[step])
+            if not lines[step] or sums[step] > walls[step]:
+                fail(f"trace {step}: stage lines {lines[step]} sum to "
+                     f"{sums[step]:.1f} ms of a {walls[step]:.1f} ms call")
+        if back != data:
+            fail("trace: the block did not come back")
+        trace.TRACE = False
+        with tempfile.TemporaryDirectory() as tmp:
+            trace._PROFILE_DIR = tmp
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            archive2 = P.compress(data, **kw)
+            back2 = P.decompress(archive2)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+            path = trace.stop_profiler()
+            size = os.path.getsize(path)
+            with open(path) as f:
+                events = json.load(f)["traceEvents"]
+    finally:
+        trace.TRACE, trace._PROFILE_DIR = saved
+    if archive2 != archive or back2 != data:
+        fail("profiled run: the archive differs or the block did not come "
+             "back")
+    kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
+    want = {"K1": "wide_model_kernel", "K2": "wide_rans_chain_kernel",
+            "K3": "wide_chain_kernel"}
+    missing = [k for k, sym in want.items()
+               if not any(sym in name for name in kernels)]
+    if missing:
+        fail(f"the profiler trace holds no kernel of {missing}; kernel "
+             f"names: {sorted(kernels)[:20]}")
+    print("phase 10 (e) trace compress: " + "; ".join(
+        ln[7:] for ln in lines["compress"]) + f" (sum {sums['compress']:.1f}"
+          f" of {walls['compress']:.1f} ms)", flush=True)
+    print("phase 10 (e) trace decompress: " + "; ".join(
+        ln[7:] for ln in lines["decompress"]) + f" (sum "
+          f"{sums['decompress']:.1f} of {walls['decompress']:.1f} ms)",
+          flush=True)
+    busy, window = _busy_share(events)
+    print(f"phase 10 (e) profile: a {size}-byte trace with "
+          f"{len(kernels)} kernel names, K1-K3 among them; device busy "
+          f"{busy / 1e3:.1f} ms of the {window / 1e3:.1f} ms traced window "
+          f"({busy / window * 100:.1f}%; the profiled compress + "
+          f"decompress took {wall_us / 1e3:.1f} ms with the profiler's "
+          f"start-up); {smi()}", flush=True)
+
+
 def main() -> int:
     try:
         import torch
@@ -1461,6 +1858,13 @@ def main() -> int:
                          repo)
     dc3(corpus[:BLOCK], features, device)
     print(f"phase 9 took {time.perf_counter() - t9:.1f} s", flush=True)
+    t10 = time.perf_counter()
+    ops_engine(data, features, device, archive)
+    numpy_engine(corpus[:NUMPY_FILE], repo)
+    encode_fast(data, features, device)
+    lockstep_rc(device)
+    traced(data, features, device)
+    print(f"phase 10 took {time.perf_counter() - t10:.1f} s", flush=True)
     for r in rows:
         r.update(checked[r["name"]], launches=launches[r["name"]],
                  plain_at_bytes=PLAIN_BLOCK)

@@ -16,6 +16,9 @@ host filters in ``filters/``).
 
 Entry points run on the card unless the caller passes ``device="cpu"`` to
 :func:`init`; then each kernel's plain PyTorch version runs instead.
+``TBSC_ENGINE=ops|tpu|numpy`` selects the JAX package's other engines
+(``engine``); ``TBSC_TRACE`` and ``TBSC_PROFILE`` trace the API's stages
+(``utils/trace``).
 """
 
 from __future__ import annotations
@@ -81,11 +84,15 @@ def load_tables(arrays: dict[str, np.ndarray] | None = None) -> None:
     """Install the format tables (``wide_priors_v2``, ``stretch``,
     ``squash``, ``rank_state``, ``run_state``) into the port: the kernels'
     priors and the native codec's copy.  ``None`` reloads this package's
-    own ``coder/tables/*.npy``."""
-    from . import native
+    own ``coder/tables/*.npy``.  Under ``TBSC_ENGINE=numpy`` the native
+    runtime is not loaded, and only the kernels' and the reference
+    codec's priors change."""
+    from . import engine, native
 
-    native.install_tables(
-        _tables.set_current(_tables.defaults() if arrays is None else arrays))
+    current = _tables.set_current(_tables.defaults() if arrays is None
+                                  else arrays)
+    if engine._force != "numpy":
+        native.install_tables(current)
 
 
 __all__ = [

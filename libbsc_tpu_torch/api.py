@@ -24,7 +24,10 @@ mode word records whether LZP ran.
 
 ``init(features, device=None)`` chooses the device: ``None`` means
 ``cuda``, which must be present; ``device="cpu"`` runs every kernel's
-plain PyTorch version instead.
+plain PyTorch version instead.  ``TBSC_ENGINE`` (``engine._force``)
+widens or narrows the device routes and can take the native runtime out
+(see ``engine``).  ``TBSC_TRACE=1`` prints one line per stage, under the
+JAX package's stage names (``utils/trace``).
 """
 
 from __future__ import annotations
@@ -46,6 +49,7 @@ from .format.header import (
 from .errors import BscError, corrupt
 from .ops import wide
 from .utils.adler32 import adler32
+from .utils.trace import stage
 
 _ERROR_NAMES = {
     C.BAD_PARAMETER: "bad parameter",
@@ -73,9 +77,7 @@ def init(features: int = C.DEFAULT_FEATURES, device=None) -> int:
                        "the kernels' plain versions on the CPU")
     if dev.type not in ("cuda", "cpu"):
         raise BscError(C.BAD_PARAMETER, f"unsupported device {dev}")
-    from . import native
-
-    native.load()
+    engine.init(dev)
     _state["features"] = features
     _state["device"] = dev
     return C.NO_ERROR
@@ -96,8 +98,13 @@ def _ensure_init():
 
 
 def _device_route(features: int):
-    """The device for the FEATURE_CUDA route, or None for host stages."""
-    return _state["device"] if features & C.FEATURE_CUDA else None
+    """The device for the device routes (FEATURE_CUDA, or as
+    ``TBSC_ENGINE`` says), or None for host stages."""
+    return engine.device_route(features, _state["device"])
+
+
+def _stage(name: str, nbytes: int):
+    return stage(name, nbytes, _state["device"])
 
 
 def store(data: bytes) -> bytes:
@@ -140,8 +147,9 @@ def compress(data: bytes, lzp_hash_size: int = C.DEFAULT_LZPHASHSIZE,
             buf, lzp_hash_size, lzp_min_len, features):
         mode &= 0xFF
     if mode != (mode & 0xFF):
-        lz = engine.lzp_compress(buf, lzp_hash_size, lzp_min_len,
-                                 features)
+        with _stage("lzp_compress", n):
+            lz = engine.lzp_compress(buf, lzp_hash_size, lzp_min_len,
+                                     features)
         if lz is None:
             mode &= 0xFF
     if lz is None:
@@ -155,19 +163,23 @@ def compress(data: bytes, lzp_hash_size: int = C.DEFAULT_LZPHASHSIZE,
     if (block_sorter == C.BLOCKSORTER_BWT_WIDEAUX
             and coder == C.CODER_QLFC_WIDE and device is not None
             and wide.pick_lanes_policy(len(lz)) == wide.DEFAULT_LANES):
-        fused = engine.compress_block_device(lz, device)
+        with _stage("compress_block_device", len(lz)):
+            fused = engine.compress_block_device(lz, device)
         if fused is not None:
             index, num_indexes, indexes, wideaux_r, payload = fused
 
     if payload is None:  # per-stage route: the sorter, then the coder
         if block_sorter == C.BLOCKSORTER_BWT:
-            index, num_indexes, indexes = engine.bwt_encode(lz, features,
-                                                            device)
+            with _stage("bwt_encode", len(lz)):
+                index, num_indexes, indexes = engine.bwt_encode(
+                    lz, features, device)
         elif block_sorter == C.BLOCKSORTER_BWT_WIDEAUX:
-            index, num_indexes, indexes, wideaux_r = \
-                engine.bwt_encode_wideaux(lz)
+            with _stage("bwt_encode_wideaux", len(lz)):
+                index, num_indexes, indexes, wideaux_r = \
+                    engine.bwt_encode_wideaux(lz)
         elif C.BLOCKSORTER_ST3 <= block_sorter <= C.BLOCKSORTER_ST8:
-            index = engine.st_encode(lz, block_sorter, features, device)
+            with _stage(f"st{block_sorter}_encode", len(lz)):
+                index = engine.st_encode(lz, block_sorter, features, device)
             num_indexes, indexes = 0, None
         else:
             _raise(C.BAD_PARAMETER)
@@ -180,11 +192,15 @@ def compress(data: bytes, lzp_hash_size: int = C.DEFAULT_LZPHASHSIZE,
             if lanes == wide.DEFAULT_LANES and device is not None:
                 from .ops import wide_kernels
 
-                payload = wide_kernels.device_encode(lz.tobytes(), device)
+                with _stage("coder_compress_wide_tpu", len(lz)):
+                    payload = wide_kernels.device_encode(lz.tobytes(),
+                                                         device)
             if payload is None:
-                payload = wide.wide_encode(lz.tobytes(), n_lanes=lanes)
+                with _stage("coder_compress_wide", len(lz)):
+                    payload = wide.wide_encode(lz.tobytes(), n_lanes=lanes)
         else:
-            payload = engine.coder_compress(lz, coder, features)
+            with _stage("coder_compress", len(lz)):
+                payload = engine.coder_compress(lz, coder, features)
 
     tail_len = (5 if wideaux_r is not None else 1) + 4 * num_indexes
     if payload is None or len(payload) + tail_len >= n:
@@ -292,23 +308,27 @@ def _decode_to_sorter(block: bytes, expected_size: int | None):
         if block_sorter == C.BLOCKSORTER_BWT_WIDEAUX and device is not None:
             r = engine.wideaux_rate(tsize)
             _check_wideaux(h.index, indexes, tsize, r)
-            out = engine.decompress_block_device(
-                payload, h.index, indexes, r, tsize, device)
+            with _stage("decompress_block_device", len(payload)):
+                out = engine.decompress_block_device(
+                    payload, h.index, indexes, r, tsize, device)
             if out is not None:
                 lz, sorted_done = out, True
         if lz is None and device is not None:
             from .ops import wide_kernels
 
-            out = wide_kernels.device_decode(payload, device)
+            with _stage("coder_decompress_wide_tpu", len(payload)):
+                out = wide_kernels.device_decode(payload, device)
             if out is not None:
                 lz = np.frombuffer(out, dtype=np.uint8).copy()
         if lz is None:
-            lz = np.frombuffer(wide.wide_decode(payload),
-                               dtype=np.uint8).copy()
+            with _stage("coder_decompress_wide", len(payload)):
+                lz = np.frombuffer(wide.wide_decode(payload),
+                                   dtype=np.uint8).copy()
     else:
-        lz = engine.coder_decompress(np.frombuffer(payload, dtype=np.uint8),
-                                     coder, _state["features"],
-                                     capacity=h.data_size + 4096)
+        with _stage("coder_decompress", len(payload)):
+            lz = engine.coder_decompress(
+                np.frombuffer(payload, dtype=np.uint8), coder,
+                _state["features"], capacity=h.data_size + 4096)
         if isinstance(lz, int):
             _raise(lz)
     if not (block_sorter in (C.BLOCKSORTER_BWT, C.BLOCKSORTER_BWT_WIDEAUX)
@@ -325,15 +345,21 @@ def _run_sorter(st) -> None:
         return
     h, lz = st["h"], st["lz"]
     if st["sorter"] == C.BLOCKSORTER_BWT:
-        rc = engine.bwt_decode(lz, h.index, st["num_indexes"], st["indexes"],
-                               _state["features"])
+        with _stage("bwt_decode", len(lz)):
+            rc = engine.bwt_decode(lz, h.index, st["num_indexes"],
+                                   st["indexes"], _state["features"],
+                                   st["device"])
     elif st["sorter"] == C.BLOCKSORTER_BWT_WIDEAUX:
         r = engine.wideaux_rate(len(lz))
         _check_wideaux(h.index, st["indexes"], len(lz), r)
-        rc = engine.bwt_decode_wideaux(
-            lz, h.index, st["num_indexes"], st["indexes"], r, st["device"])
+        with _stage("bwt_decode_wideaux", len(lz)):
+            rc = engine.bwt_decode_wideaux(
+                lz, h.index, st["num_indexes"], st["indexes"], r,
+                st["device"])
     else:
-        rc = engine.st_decode(lz, st["sorter"], h.index, _state["features"])
+        with _stage(f"st{st['sorter']}_decode", len(lz)):
+            rc = engine.st_decode(lz, st["sorter"], h.index,
+                                  _state["features"])
     if rc < 0:
         _raise(rc)
 
@@ -341,9 +367,11 @@ def _run_sorter(st) -> None:
 def _finish_decode(st) -> bytes:
     h, lz = st["h"], st["lz"]
     if st["lzp_hash_size"] or st["lzp_min_len"]:
-        out = engine.lzp_decompress(lz, st["lzp_hash_size"],
-                                    st["lzp_min_len"], _state["features"],
-                                    capacity=h.data_size + 4096)
+        with _stage("lzp_decompress", len(lz)):
+            out = engine.lzp_decompress(lz, st["lzp_hash_size"],
+                                        st["lzp_min_len"],
+                                        _state["features"],
+                                        capacity=h.data_size + 4096)
         if isinstance(out, int):
             _raise(out)
     else:
@@ -380,8 +408,9 @@ def decompress_batch(blocks: list) -> list:
         else:
             _run_sorter(st)
     for k, group in st_groups.items():
-        rc = engine.st_decode_batch([s["lz"] for s in group], k,
-                                    [s["h"].index for s in group])
+        with _stage(f"st{k}_decode_batch", sum(len(s["lz"]) for s in group)):
+            rc = engine.st_decode_batch([s["lz"] for s in group], k,
+                                        [s["h"].index for s in group])
         if rc < 0:
             _raise(rc)
     return [st if isinstance(st, bytes) else _finish_decode(st)

@@ -11,6 +11,26 @@ BWT on the device; only the final bytes come back.  Neither catches
 errors: a kernel that fails to build or launch raises.  They return None
 only where the block's data sends it to the per-stage route, under the
 JAX package's conditions.
+
+``TBSC_ENGINE`` (read at import into ``_force``, the JAX package's name,
+so tests monkeypatch it the same way) selects the engine:
+
+- unset or ``native``: the native runtime; the device routes only with
+  FEATURE_CUDA (:func:`device_route`);
+- ``ops``: every device route on the API's device, whatever FEATURE_CUDA
+  says: the BWT sorts there without ``TBSC_BWT_DEVICE``, the ST sorts
+  there, and the default-format inverse BWT of a block of 1 MiB or more
+  runs by list ranking (``ops/bwt.bwt_decode``); on ``device="cpu"``
+  these are the plain versions;
+- ``tpu``: ``ops`` when the API's device is CUDA, else every stage on
+  the host (the JAX package's ``tpu`` needs a device that is no CPU);
+- ``numpy``: the native runtime is never loaded.  LZP, the QLFC coders
+  and the inverse ST run in ``fallback/``; the BWT forward and inverse and
+  the forward ST run through the torch ops on the API's device, at any
+  size; ``BLOCKSORTER_BWT_WIDEAUX`` returns -10 (its host sorter is
+  native only); the wide coder runs its Python reference.
+
+No route retries on the host after a device failure: the error is raised.
 """
 
 from __future__ import annotations
@@ -21,6 +41,7 @@ import os
 import numpy as np
 import torch
 
+from . import constants as C
 from . import native
 
 # Blocks below this size take the per-stage route (the JAX package's
@@ -28,12 +49,49 @@ from . import native
 _DEVICE_MIN_BLOCK = 1 << 20
 
 # Calls that took a device route with no kernel of its own to count them.
-DEVICE_ROUTES = {"bwt_encode": 0, "bwt_encode_dc3": 0}
+DEVICE_ROUTES = {"bwt_encode": 0, "bwt_encode_dc3": 0, "bwt_decode": 0}
+
+_force = os.environ.get("TBSC_ENGINE", "").lower() or None
+_device = None  # the API's device (init), where the numpy engine's ops run
+
+# The native runtime's code for a sorter it alone implements.
+_NATIVE_ONLY = -10
+
+
+def init(device) -> None:
+    """Record the API's device; load the native runtime unless the engine
+    is ``numpy``."""
+    global _device
+    _device = torch.device(device)
+    if _force != "numpy":
+        native.load()
+
+
+def device_route(features: int, device):
+    """The device the device routes run on under the engine and
+    ``features``, or None for host stages (see the module docstring)."""
+    if _force == "numpy":
+        return None
+    if _force == "tpu":
+        return device if device.type == "cuda" else None
+    if _force == "ops":
+        return device
+    return device if features & C.FEATURE_CUDA else None
+
+
+def _forced(device) -> bool:
+    """True when TBSC_ENGINE sends every device route to ``device``."""
+    return device is not None and _force in ("tpu", "ops")
+
+
+def _numpy_device():
+    if _device is None:
+        raise RuntimeError("TBSC_ENGINE=numpy needs engine.init(device) "
+                           "(api.init calls it)")
+    return _device
 
 
 def num_threads(features: int) -> int:
-    from . import constants as C
-
     return (os.cpu_count() or 1) if features & C.FEATURE_MULTITHREADING \
         else 1
 
@@ -45,6 +103,10 @@ def _as_c(arr: np.ndarray) -> np.ndarray:
 def lzp_compress(data: np.ndarray, hash_size: int, min_len: int,
                  features: int):
     """The LZP stream as ndarray, or None if not compressible."""
+    if _force == "numpy":
+        from .fallback import lzp
+
+        return lzp.lzp_compress(_as_c(data), hash_size, min_len)
     lib = native.load()
     inp = _as_c(data)
     out = np.empty(len(inp) + 1024, dtype=np.uint8)
@@ -56,12 +118,30 @@ def lzp_compress(data: np.ndarray, hash_size: int, min_len: int,
 def lzp_decompress(data: np.ndarray, hash_size: int, min_len: int,
                    features: int, capacity: int):
     """The decoded bytes as ndarray, or a negative error code."""
+    if _force == "numpy":
+        from .fallback import lzp
+
+        return _checked(lambda: lzp.lzp_decompress(_as_c(data), hash_size,
+                                                   min_len), capacity)
     lib = native.load()
     inp = _as_c(data)
     out = np.empty(int(capacity), dtype=np.uint8)
     rc = lib.tbsc_lzp_decompress(native.u8p(inp), native.u8p(out), len(inp),
                                  hash_size, min_len, num_threads(features))
     return rc if rc < 0 else out[:rc]
+
+
+def _checked(decode, capacity: int | None = None):
+    """A numpy-engine decoder's output, or DATA_CORRUPT where a payload
+    field it trusted was out of range (or the output passes
+    ``capacity``)."""
+    try:
+        out = decode()
+    except (IndexError, ValueError, KeyError):
+        return C.DATA_CORRUPT
+    if capacity is not None and len(out) > capacity:
+        return C.DATA_CORRUPT
+    return out
 
 
 def bwt_encode(data: np.ndarray, features: int, device=None):
@@ -76,12 +156,19 @@ def bwt_encode(data: np.ndarray, features: int, device=None):
     function's name.  The JAX package pads the block to a size bucket
     (unless ``TBSC_BWT_PAD=0``) because XLA compiles a program per shape;
     torch compiles nothing per shape, so the exact shape is the only form
-    here and ``TBSC_BWT_PAD`` has nothing to switch.  A device failure
-    raises: there is no silent host fallback.  Every other block sorts on
-    the native runtime."""
+    here and ``TBSC_BWT_PAD`` has nothing to switch.  Under
+    ``TBSC_ENGINE=ops|tpu`` the device route needs no ``TBSC_BWT_DEVICE``;
+    under ``numpy`` every block sorts through ``ops/bwt.bwt_encode`` on the
+    API's device, uncounted.  A device failure raises: there is no silent
+    host fallback.  Every other block sorts on the native runtime."""
     n = len(data)
+    if _force == "numpy":
+        from .fallback import bwt
+
+        return bwt.bwt_encode(data, _numpy_device())
     if (device is not None and n >= _DEVICE_MIN_BLOCK
-            and os.environ.get("TBSC_BWT_DEVICE") == "1"):
+            and (_forced(device)
+                 or os.environ.get("TBSC_BWT_DEVICE") == "1")):
         from .ops import bwt as opsbwt
 
         route = ("bwt_encode_dc3"
@@ -104,7 +191,33 @@ def bwt_encode(data: np.ndarray, features: int, device=None):
 
 
 def bwt_decode(data: np.ndarray, index: int, num_indexes: int, indexes,
-               features: int) -> int:
+               features: int, device=None) -> int:
+    """Inverse BWT of the default format in place.  Returns 0 or a
+    negative error code.
+
+    Under ``TBSC_ENGINE=ops|tpu`` (``device`` from :func:`device_route`)
+    a block of 1 MiB or more inverts on the device by list ranking
+    (``ops/bwt.bwt_decode``, counted in ``DEVICE_ROUTES``); a primary
+    outside [1, n] returns DATA_CORRUPT before any launch (what the JAX
+    route's output ends in at the Adler-32 check).  Under ``numpy`` every
+    block takes that list ranking on the API's device.  Other blocks take
+    the native runtime."""
+    n = len(data)
+    if _force == "numpy":
+        from .fallback import bwt
+
+        return bwt.bwt_decode(data, index, num_indexes, indexes,
+                              _numpy_device())
+    if _forced(device) and n >= _DEVICE_MIN_BLOCK:
+        from .ops import bwt as opsbwt
+
+        if not 0 < index <= n:
+            return C.DATA_CORRUPT
+        out = opsbwt.bwt_decode(torch.from_numpy(_as_c(data)).to(device),
+                                index)
+        data[:] = out.cpu().numpy()
+        DEVICE_ROUTES["bwt_decode"] += 1
+        return 0
     lib = native.load()
     idx = (np.ascontiguousarray(indexes, dtype=np.int32)
            if indexes is not None else np.zeros(1, dtype=np.int32))
@@ -121,9 +234,14 @@ def st_encode(data: np.ndarray, k: int, features: int, device=None) -> int:
     the native runtime.  The JAX package pads the block to a size bucket
     and serialises the first call of each (bucket, k), because XLA
     compiles a program per shape; torch compiles nothing per shape, so
-    there is neither here.  A device failure raises: there is no silent
-    host fallback."""
+    there is neither here.  Under ``TBSC_ENGINE=numpy`` every block sorts
+    there on the API's device.  A device failure raises: there is no
+    silent host fallback."""
     n = len(data)
+    if _force == "numpy":
+        from .fallback import st
+
+        return st.st_encode(data, k, _numpy_device())
     if device is not None and n >= _DEVICE_MIN_BLOCK:
         from .ops import st as opsst
 
@@ -140,8 +258,13 @@ def st_encode(data: np.ndarray, k: int, features: int, device=None) -> int:
 
 
 def st_decode(data: np.ndarray, k: int, index: int, features: int) -> int:
-    """Inverse ST-k in place on the native runtime (a serial chase: no
-    device route, as in the JAX package).  Returns 0 or an error code."""
+    """Inverse ST-k in place on the native runtime, or in numpy under
+    ``TBSC_ENGINE=numpy`` (a serial chase: no device route, as in the JAX
+    package).  Returns 0 or an error code."""
+    if _force == "numpy":
+        from .fallback import st
+
+        return _checked(lambda: st.st_decode(data, k, index))
     lib = native.load()
     buf = _as_c(data)
     rc = lib.tbsc_st_decode(native.u8p(buf), len(data), k, index,
@@ -154,7 +277,14 @@ def st_decode(data: np.ndarray, k: int, index: int, features: int) -> int:
 def st_decode_batch(arrays: list, k: int, indexes: list) -> int:
     """Inverse ST-k of several blocks in place, their backward walks
     interleaved in one native loop (a serial chase per block, memory-level
-    parallelism across blocks).  Returns 0 or a negative error code."""
+    parallelism across blocks; one :func:`st_decode` each under
+    ``TBSC_ENGINE=numpy``).  Returns 0 or a negative error code."""
+    if _force == "numpy":
+        for a, idx in zip(arrays, indexes):
+            rc = st_decode(a, k, idx, 0)
+            if rc < 0:
+                return rc
+        return 0
     lib = native.load()
     bufs = [_as_c(a) for a in arrays]
     ptrs = (ctypes.c_void_p * len(bufs))(*[b.ctypes.data for b in bufs])
@@ -170,8 +300,13 @@ def st_decode_batch(arrays: list, k: int, indexes: list) -> int:
 
 
 def coder_compress(data: np.ndarray, coder: int, features: int):
-    """QLFC static, adaptive or fast encode on the native runtime.  The
-    payload as ndarray, or None if not compressible."""
+    """QLFC static, adaptive or fast encode on the native runtime (in
+    Python under ``TBSC_ENGINE=numpy``).  The payload as ndarray, or None
+    if not compressible."""
+    if _force == "numpy":
+        from .fallback import qlfc
+
+        return qlfc.coder_compress(_as_c(data), coder)
     lib = native.load()
     inp = _as_c(data)
     out = np.empty(len(inp) + 4096, dtype=np.uint8)
@@ -182,8 +317,14 @@ def coder_compress(data: np.ndarray, coder: int, features: int):
 
 def coder_decompress(data: np.ndarray, coder: int, features: int,
                      capacity: int):
-    """QLFC decode on the native runtime.  The decoded bytes as ndarray,
-    or a negative error code."""
+    """QLFC decode on the native runtime (in Python under
+    ``TBSC_ENGINE=numpy``).  The decoded bytes as ndarray, or a negative
+    error code."""
+    if _force == "numpy":
+        from .fallback import qlfc
+
+        return _checked(lambda: qlfc.coder_decompress(_as_c(data), coder),
+                        capacity)
     lib = native.load()
     inp = _as_c(data)
     out = np.empty(int(capacity), dtype=np.uint8)
@@ -203,10 +344,13 @@ def wideaux_rate(n: int) -> int:
 
 def bwt_encode_wideaux(data: np.ndarray):
     """Host wide-aux BWT in place.  Returns (index, num_indexes, indexes,
-    r)."""
+    r); the index is -10 under ``TBSC_ENGINE=numpy`` (the host sorter is
+    native only, as in the JAX package)."""
     n = len(data)
     r = wideaux_rate(n)
     k = (n - 1) // r
+    if _force == "numpy":
+        return _NATIVE_ONLY, 0, None, r
     lib = native.load()
     indexes = np.zeros(max(k, 1), dtype=np.int32)
     rc = lib.tbsc_bwt_encode_rate(native.u8p(data), n, r,
@@ -218,7 +362,7 @@ def bwt_decode_wideaux(data: np.ndarray, index: int, num_indexes: int,
                        indexes, r: int, device) -> int:
     """Inverse wide-aux BWT in place: the device chase for blocks of
     1 MiB or more when ``device`` is given, the native wavefront
-    otherwise."""
+    otherwise (-10 under ``TBSC_ENGINE=numpy``, as in the JAX package)."""
     n = len(data)
     if device is not None and n >= _DEVICE_MIN_BLOCK:
         from .ops import bwt as opsbwt
@@ -229,6 +373,8 @@ def bwt_decode_wideaux(data: np.ndarray, index: int, num_indexes: int,
             .to(device), r, n)
         data[:] = out.cpu().numpy()
         return 0
+    if _force == "numpy":
+        return _NATIVE_ONLY
     lib = native.load()
     idx = np.ascontiguousarray(np.asarray(indexes, dtype=np.int32))
     return lib.tbsc_bwt_decode_rate(native.u8p(data), n, index, r,

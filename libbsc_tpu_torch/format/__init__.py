@@ -7,6 +7,7 @@ from .header import (
     parse_block_header,
     make_stored_block,
 )
+from .subblocks import num_sub_blocks, write_directory, read_directory
 
 __all__ = [
     "Mode",
@@ -16,4 +17,7 @@ __all__ = [
     "pack_block_header",
     "parse_block_header",
     "make_stored_block",
+    "num_sub_blocks",
+    "write_directory",
+    "read_directory",
 ]

@@ -20,7 +20,10 @@ runtime's tbsc_bwt_encode_rate):
   primary index = rank(suffix 0) + 1;
   aux indexes at rate r: indexes[t] = rank(suffix (t+1) r).
 
-Inverse: the wide-aux tail gives (n-1)//r + 1 independent forward chains
+Inverse of the default format (:func:`bwt_decode`, the ``TBSC_ENGINE=ops``
+route): the LF permutation is list-ranked by pointer doubling, a fixed
+ceil(log2 n) rounds of two gathers each, with no host sync.  Inverse of the
+wide-aux profile: the tail gives (n-1)//r + 1 independent forward chains
 (the primary and each aux index); they are chased together, one gather of
 the packed (first char, PSI) table per step, for r steps.
 """
@@ -358,6 +361,73 @@ def bwt_encode(data: torch.Tensor):
                 torch.zeros(0, dtype=torch.int32, device=data.device))
     _, rank = suffix_array(data)
     return _extract_bwt_impl(data, rank, aux_rate(n))
+
+
+def suffix_array_fast(data: torch.Tensor) -> torch.Tensor:
+    """Position-ordered suffix ranks of u8[n].
+
+    The JAX package keeps a second, host-driven sort beside its traceable
+    one because XLA wants static shapes: it syncs a count each round and
+    re-sorts the unresolved positions in padded buckets.  The port's
+    :func:`suffix_array` is already host-driven (a count sync each round,
+    rounds over the unresolved positions only once they number under
+    n/4), so this returns its ranks."""
+    return suffix_array(data)[1]
+
+
+def bwt_encode_fast(data: torch.Tensor):
+    """Forward BWT of u8[n] from :func:`suffix_array_fast`, at the format's
+    aux rate: the same result as :func:`bwt_encode`."""
+    n = data.shape[0]
+    if n <= 1:
+        return (data, torch.tensor(n, device=data.device),
+                torch.zeros(0, dtype=torch.int32, device=data.device))
+    return _extract_bwt_impl(data, suffix_array_fast(data), aux_rate(n))
+
+
+def _log2_ceil(n: int) -> int:
+    return max(1, (n - 1).bit_length())
+
+
+def bwt_decode(data: torch.Tensor, index: int) -> torch.Tensor:
+    """Inverse BWT of u8[n] (the default format) given the primary index
+    in [1, n], by list ranking on data's device.
+
+    LF maps the BWT slot u to its row in [1, n] (row 0 is the sentinel);
+    one stable sort of the bytes gives it: the j-th slot in sorted order
+    goes to row j + 1.  Back in slot coordinates, the chain runs from the
+    slot whose row is the primary (its outgoing edge is never taken) to
+    slot 0.  Pointer doubling ranks every slot's distance to slot 0 in
+    ceil(log2 n) rounds; slot u emits output position n - 1 - dist(u).
+
+    A primary outside [1, n] raises ValueError before any launch.  Bytes
+    that are no BWT give an LF permutation of several cycles, whose
+    distances pass n - 1; those writes are dropped (the output is garbage,
+    and the caller's Adler-32 check rejects it), so no index leaves
+    [0, n)."""
+    n = data.shape[0]
+    if n <= 1:
+        return data
+    if not 0 < index <= n:
+        raise ValueError(f"BWT primary {index} outside [1, {n}]")
+    dev = data.device
+    idx = torch.arange(n, device=dev)
+    pos_s = torch.sort(data, stable=True).indices
+    lf = torch.empty(n, dtype=torch.int64, device=dev)
+    lf[pos_s] = idx + 1
+    nxt = lf - (lf > index).long()
+    keep = lf != index  # the terminal slot's edge is dropped
+    pred = torch.zeros(n, dtype=torch.int64, device=dev)
+    pred[nxt[keep]] = idx[keep]
+    pred[0] = 0
+    dist = (idx != 0).long()
+    for _ in range(_log2_ceil(n)):
+        dist = dist + dist[pred]
+        pred = pred[pred]
+    ok = dist < n
+    out = torch.zeros(n, dtype=torch.uint8, device=dev)
+    out[(n - 1 - dist)[ok]] = data[ok]
+    return out
 
 
 def bwt_encode_dc3(data: torch.Tensor):

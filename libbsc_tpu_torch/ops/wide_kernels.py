@@ -35,6 +35,7 @@ uint32 shifts or compares.
 
 from __future__ import annotations
 
+import os
 import struct
 import threading
 from concurrent.futures import ThreadPoolExecutor
@@ -900,10 +901,15 @@ def host_schedule_packed(buf: np.ndarray, n: int, sizes_p, chunk: int):
         cap4 = min(max(needed4, cap4 + 1), hard)
 
 
-def _host_prep(data: bytes):
+def _host_prep(data: bytes, device=None):
     """Host stage of the per-stage encode: native lane balancing and
-    schedule walk.  Returns (planes u8 [IT/4, 1024] ndarray, sizes or None,
-    max_bits, IT), or None when the block does not take the kernels."""
+    schedule walk.  With ``TBSC_WIDE_DEV_SCHED`` set (to anything but the
+    empty string, read at each call, as in the JAX package) and a
+    ``device``, the bit schedule runs there instead, by
+    ``wide_schedule.device_schedule`` on the same lane table (the native
+    balancer's, else equal lanes); its planes equal the walker's.  Returns
+    (planes u8 [IT/4, 1024] ndarray or tensor, sizes or None, max_bits,
+    IT), or None when the block does not take the kernels."""
     from .. import native
 
     n = len(data)
@@ -921,6 +927,16 @@ def _host_prep(data: bytes):
         sizes_p = native.i32p(sizes)
     else:
         sizes = None
+    if device is not None and os.environ.get("TBSC_WIDE_DEV_SCHED"):
+        from . import wide_schedule
+
+        table = sizes if sizes is not None else np.asarray(
+            W.lane_sizes(n, LANES), np.int32)
+        pk_d, max_bits = wide_schedule.device_schedule(
+            torch.from_numpy(buf.copy()).to(device), table, LANES,
+            it_bucket=lambda mb: _it_bucket(max(mb, TI)))
+        IT = _it_bucket(max(max_bits, TI))
+        return pk_d[:, : IT // 4].t().contiguous(), sizes, max_bits, IT
     pk, max_bits = host_schedule_packed(buf, n, sizes_p, chunk)
     if max_bits < 0:
         return None
@@ -955,7 +971,7 @@ def device_encode(data: bytes, device="cuda"):
     schedule, then K1 and K2 (or K5 when ``RANS`` is False).  Returns the
     payload (the native codec's bytes for the same lane table), or None
     when the block does not take the kernels or is not compressible."""
-    prep = _host_prep(data)
+    prep = _host_prep(data, device)
     if prep is None:
         return None
     return _collect(len(data), _submit(prep, device))

@@ -17,6 +17,9 @@ without a sequential per-byte walk:
    event scattered at its bit offset and forward-filled with cummax, so
    every iteration finds its owning event without a gather.
 
+:func:`device_schedule_v2` refuses blocks the JAX package's v2 sends to
+the host walker; :func:`device_schedule` (the JAX package's v1, for an
+explicit lane table, under ``TBSC_WIDE_DEV_SCHED``) takes every block.
 :func:`device_balanced_sizes` is the device lane balancer (run-count
 quantiles).  Its table differs from the native balancer's, so the fused
 route's archive is not the per-stage route's: both packages hold the fused
@@ -25,13 +28,14 @@ route to this one.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from . import wide as W
 
-_S_SHIFT = 13   # low bits of the event word: rank << 5 | run bit-length
-_IT_CAP = 1 << (32 - _S_SHIFT)  # the JAX package's packing cap, kept so
-# both packages send the same blocks to the host walker
+_S_SHIFT = 14   # low bits of the event word: rank << 6 | run bit-length
+_IT_CAP = 1 << 19  # the JAX package's v2 packing cap (32 - its 13-bit
+# shift), kept so both packages send the same blocks to the host walker
 _LANE_CHUNK = 128  # lanes expanded at a time (bounds the [lanes, IT] temps)
 
 
@@ -165,12 +169,12 @@ def _expand2(rank, ev_len, B, total, IT: int) -> torch.Tensor:
             z.scatter_(1, cols, word)
             return torch.cummax(z[:, :IT], 1).values
 
-        A = fill((S << _S_SHIFT) | (rk << 5) | ubrs)
-        Bw = fill((S << W.RUN_EXP_CAP) | ln)
+        A = fill((S << _S_SHIFT) | (rk << 6) | ubrs)
+        Bw = fill((S << 32) | ln)
         j = it - (A >> _S_SHIFT)
-        rk_g = (A >> 5) & 0xFF
-        ubrs_g = A & 0x1F
-        rn_g = Bw & ((1 << W.RUN_EXP_CAP) - 1)
+        rk_g = (A >> 6) & 0xFF
+        ubrs_g = A & 0x3F
+        rn_g = Bw & 0xFFFFFFFF
 
         brs_g = torch.where(rk_g > 0, _bitlen(rk_g), 0)
         rlen_g = torch.where(rk_g > 0,
@@ -225,4 +229,35 @@ def device_schedule_v2(data: torch.Tensor, sizes, L: int, it_bucket=None):
                                                        256)
     if IT >= _IT_CAP:
         return None, -1
+    return _expand2(rank, ev_len, B, total, IT), max_bits
+
+
+def device_schedule(data: torch.Tensor, sizes, L: int, it_bucket=None):
+    """Packed per-lane iteration planes u8 [L, IT/4] (on data's device)
+    and max_bits for the lane table ``sizes`` (int32[L], summing to at
+    most n; bytes past the table are not coded), the planes of the JAX
+    package's v1 ``device_schedule`` and of the native walker.
+
+    The JAX v1 pads [L, C] planes to the largest lane and runs 256
+    running-max passes over them; this builds the same planes from the v2
+    pieces (:func:`_events2`, :func:`_expand2`) on the [L, E] event grid.
+    Unlike :func:`device_schedule_v2` it refuses no block: v1 has no
+    packing cap, and the int64 event words here need none.
+    ``it_bucket(max_bits) -> IT`` picks the plane length (default: a power
+    of two from 256)."""
+    sizes_np = np.asarray(sizes, dtype=np.int64)
+    n = int(sizes_np.sum())
+    if sizes_np.shape != (L,) or n > data.shape[0]:
+        raise ValueError("sizes must hold one entry per lane and sum to at "
+                         "most the block's length")
+    data = data[:n]
+    sizes_d = torch.from_numpy(sizes_np).to(data.device)
+    starts = sizes_d.cumsum(0) - sizes_d
+    stats, nr, cum, frid = _stats(data, starts)
+    E = _bucket(max(int(stats[1]), 256), 256)
+    rank, ev_len, B, total = _events2(data, starts, sizes_d, nr, cum, frid,
+                                      E)
+    max_bits = int(total.max())
+    IT = it_bucket(max_bits) if it_bucket else _bucket(max(max_bits, 256),
+                                                       256)
     return _expand2(rank, ev_len, B, total, IT), max_bits

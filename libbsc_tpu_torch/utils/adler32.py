@@ -2,7 +2,7 @@
 
 The reference (adler32/adler32.cpp:85) computes the standard zlib Adler-32;
 :func:`zlib.adler32` gives the same value where the native runtime is
-missing.  The route for a block already on the card is
+missing or ``TBSC_ENGINE=numpy`` keeps it out.  The route for a block already on the card is
 ``ops/stats_kernels.adler32_device`` (K7).
 """
 
@@ -19,6 +19,10 @@ _native_fn = None  # None = untried, False = unavailable
 
 def _native():
     global _native_fn
+    from .. import engine
+
+    if engine._force == "numpy":
+        return False
     if _native_fn is None:
         from .. import native as native_mod
 

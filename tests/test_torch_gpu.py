@@ -4,7 +4,9 @@ the pipelined many-block entry points, the sharded transform step on a
 one-GPU mesh (K6 in its stage 1), the -m5 -G device ST route, the
 CLI: -m9 -e4 -G through K1, K2 and K3, and the -G default config through
 the device BWT, the sample-sort ST step on a mesh that lists cuda:0
-twice, and the DC3 device BWT.
+twice, the DC3 device BWT, the list-ranking inverse BWT (on cuda against
+its CPU run at 4 MiB, and through the API under TBSC_ENGINE=ops) and the
+lockstep range coder against the serial reference.
 
 These tests need a CUDA device and skip without one.  tests/conftest.py
 imports JAX, which a GPU machine need not have, so run them there with
@@ -476,3 +478,53 @@ def test_dc3_bwt_equals_native_at_1_mib(cuda):
     assert U.cpu().numpy().tobytes() == ref.tobytes()
     assert int(primary) == ref_primary
     assert np.array_equal(aux.cpu().numpy(), ref_aux[:ni])
+
+
+def test_list_ranking_on_cuda_equals_cpu_at_4_mib(cuda):
+    from libbsc_tpu_torch import engine
+    from libbsc_tpu_torch.ops import bwt
+
+    data = np.frombuffer(_text(4 << 20, 70), np.uint8).copy()
+    U = data.copy()
+    primary, _, _ = engine.bwt_encode(U, C.FEATURE_MULTITHREADING)
+    on_card = bwt.bwt_decode(torch.from_numpy(U).to(cuda), primary)
+    assert on_card.device == cuda
+    on_cpu = bwt.bwt_decode(torch.from_numpy(U), primary)
+    assert torch.equal(on_card.cpu(), on_cpu)
+    assert on_cpu.numpy().tobytes() == data.tobytes()
+    junk = bwt.bwt_decode(torch.from_numpy(U[::-1].copy()).to(cuda), 7)
+    torch.cuda.synchronize()  # a non-BWT: no device-side assert
+    assert junk.shape == on_card.shape
+
+
+def test_ops_engine_on_cuda_counts_both_bwt_routes(cuda, monkeypatch):
+    from libbsc_tpu_torch import engine
+
+    data = _text((1 << 20) + 4321, 71)
+    P.init(C.DEFAULT_FEATURES, device=cuda)
+    host = P.compress(data)
+    monkeypatch.setattr(engine, "_force", "ops")
+    before = dict(engine.DEVICE_ROUTES)
+    archive = P.compress(data, lzp_hash_size=0, lzp_min_len=0)
+    assert P.decompress(archive) == data
+    assert engine.DEVICE_ROUTES["bwt_encode"] == before["bwt_encode"] + 1
+    assert engine.DEVICE_ROUTES["bwt_decode"] == before["bwt_decode"] + 1
+    assert P.compress(data) == host  # the ops archive is the host's
+
+
+def test_wide_rc_on_cuda_equals_the_serial_reference(cuda):
+    from libbsc_tpu_torch.fallback.qlfc import RcEncoder
+    from libbsc_tpu_torch.ops import wide_rc
+
+    g = np.random.default_rng(72)
+    lanes = [[(int(g.integers(0, 2)), int(g.integers(1, 4095)), 12)
+              for _ in range(int(g.integers(1, 500)))] for _ in range(64)]
+    streams = wide_rc.encode(lanes, device=cuda)
+    for seq, stream in zip(lanes, streams):
+        rc = RcEncoder(1 << 20)
+        for b, p, prec in seq:
+            rc.encode(b, p, prec)
+        assert stream == rc.finish()
+    probs = [[(p, prec) for _, p, prec in seq] for seq in lanes]
+    bits = wide_rc.decode(probs, streams, device=cuda)
+    assert bits == [[b for b, _, _ in seq] for seq in lanes]

@@ -20,10 +20,12 @@ def test_import_loads_no_jax_and_no_jax_package():
         "from libbsc_tpu_torch.filters import detectors, preprocessing, "
         "tables\n"
         "from libbsc_tpu_torch.ops import _cuda, bwt, st, stats_kernels, "
-        "wide, wide_kernels, wide_schedule\n"
-        "from libbsc_tpu_torch import parallel\n"
+        "wide, wide_kernels, wide_rc, wide_schedule\n"
+        "from libbsc_tpu_torch import fallback, format, parallel\n"
+        "from libbsc_tpu_torch.fallback import bwt, lzp, qlfc, st\n"
+        "from libbsc_tpu_torch.format import subblocks\n"
         "from libbsc_tpu_torch.parallel import distributed\n"
-        "from libbsc_tpu_torch.utils import adler32\n"
+        "from libbsc_tpu_torch.utils import adler32, trace\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'libbsc_tpu' or "
         "m.startswith('libbsc_tpu.'))\n"
