@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Quickest proof that the PyTorch/CUDA port runs on the GPU.
 
-    python3 chip_smoke.py            # one CUDA card, about nine minutes
+    python3 chip_smoke.py            # one CUDA card, about eight minutes
 
 Phases, one line or more each:
   1. build: the CUDA kernels (one nvcc per csrc/*.cu, all started together)
@@ -25,18 +25,30 @@ Phases, one line or more each:
      (bsc's default -b25; kernels only, after a warm-up), its payload or
      decoded block again held against the native codec or the input,
      with its measured cycles per iteration (ms x max SM clock /
-     iterations);
+     iterations); K8 (the wide-aux chase), K9 and K10 (the bit schedule's
+     events and planes) against their plain versions on the 4 MiB block
+     (its device lane table), on edge_block (an empty lane, a one-run
+     lane, all 256 byte values, runs across lane starts, dead lanes) and
+     on the hard blocks (each with its own lane table), exactly, K10's
+     planes also against the native walker's and K8's chase of each
+     block's own wide-aux BWT against the block; then each timed with
+     CUDA events on the 25 MiB block's own inputs, beside its plain
+     version (once) and, for K8, one stable sort of the block's bytes
+     (the library call for its table's PSI part);
   3. the v3 main path: the 25 MiB block through api.compress and
      api.decompress with -m9 -e4 -G, launch counters set to 0 just before
-     and read just after.  K1, K2 and K3 must have launched and K4 and K5
-     not; the archive must equal the one composed from the stages and the
-     native wide encode; both the device decode and the native host decode
-     must restore the input.  Then each stage of the fused route is timed
-     once, stage by stage, for the breakdown; the archive those stages
-     compose must equal the main path's, so the breakdown cannot drift
-     from the code it times;
+     and read just after (K8-K10's also between the two).  K1, K2 and K3
+     must have launched and K4 and K5 not, K9 and K10 once in the encode
+     and K8 once in the decode; the archive must equal the one composed
+     from the stages and the native wide encode; both the device decode
+     and the native host decode must restore the input.  Then each stage
+     of the fused route is timed once, stage by stage, for the breakdown
+     (the schedule split into lanes, stats, events (K9), planes (K10) and
+     transpose; the inverse BWT into psi, the chase's table, and chase,
+     K8); the archive those stages compose must equal the main path's, so
+     the breakdown cannot drift from the code it times;
   4. the v2 main path: the same with wide_kernels.RANS = False.  K5 and K4
-     must have launched and K1, K2 and K3 not;
+     must have launched and K1, K2 and K3 not (K8-K10 as in phase 3);
   5. many blocks: three other 25 MiB blocks of the corpus, each after the
      port's device BWT, through device_encode_many (each payload must
      equal device_encode of its block) and device_decode_many (each block
@@ -106,13 +118,13 @@ Phases, one line or more each:
      by the native engine instead); (c) ops/bwt.bwt_encode_fast on the
      LZP'd block, equal to the native BWT, timed beside bwt_encode, and
      TBSC_WIDE_DEV_SCHED's device_schedule on its BWT: planes and payload
-     equal to the native walker's; (d) ops/wide_rc, 256 lanes x 1,000
-     bits on the card: each stream equal to the serial RcEncoder's, the
-     bits decoded back; (e) TBSC_TRACE over one -m9 -e4 -G compress and
-     decompress: stage lines printed, summing to at most each call's
-     wall time; then untraced under TBSC_PROFILE: the torch.profiler
-     trace must hold K1-K3's CUDA kernels, and the device's busy share
-     over that window is printed.
+     equal to the native walker's, K9 and K10 launched once a schedule;
+     (d) ops/wide_rc, 256 lanes x 1,000 bits on the card: each stream
+     equal to the serial RcEncoder's, the bits decoded back; (e)
+     TBSC_TRACE over one -m9 -e4 -G compress and decompress: stage lines
+     printed, summing to at most each call's wall time; then untraced
+     under TBSC_PROFILE: the torch.profiler trace must hold K1-K3's CUDA
+     kernels, and the device's busy share over that window is printed.
 
 Phase 2 also holds K6 (byte histogram) and K7 (Adler-32 partials) against
 their plain versions on the 4 MiB check block, an all-zero 4 MiB block and
@@ -123,14 +135,15 @@ each launch on one of four copies in turn so that its input is not in the
 50 MB L2 cache; K6 also on an all-zero block, uniform random bytes and the
 text at offset 3, each of 25 MiB and held against its plain version.
 
-The script prints a JSON line of per-kernel numbers (launches from the
-main path that runs the kernel: K1-K3 phase 3, K4 and K5 phase 4, K6 and
-K7 phase 6; cli_launches of K1-K3 from phase 8's -m9 -e4 -G encode and
-decode, counted from several threads, so read as launched or not;
-farm_launches of K1-K3 from phase 9's farm: the one-process encode, the
-two ranks' encodes summed from their lines, and the -G decode), the
-nvidia-smi line, and, last, {"ok": true, "device": ...}
-only when every phase passed.  It exits non-zero without CUDA or outside
+The script prints each phase's wall seconds (the run-time line), a JSON
+line of per-kernel numbers (launches from the main path that runs the
+kernel: K1-K3 and K8-K10 phase 3, K4 and K5 phase 4, K6 and K7 phase 6;
+cli_launches of K1-K3 from phase 8's -m9 -e4 -G encode and decode,
+counted from several threads, so read as launched or not; farm_launches
+of K1-K3 from phase 9's farm: the one-process encode, the two ranks'
+encodes summed from their lines, and the -G decode), the nvidia-smi
+line, and, last, {"ok": true, "device": ...} only when every phase
+passed.  It exits non-zero without CUDA or outside
 a checkout of the repository.
 
 Each kernel's bound_ms is the larger of its bytes (each input read once,
@@ -138,7 +151,10 @@ each output written once; for the encode kernels the max_bits rows of
 planes and probabilities they touch) over 3.35 TB/s and its operations
 (one per coded bit, a floor) over 67 TFLOP/s, the H100 SXM's device-memory
 rate and peak outside the tensor cores.  K3/K4's record buffer is scratch
-between their two kernels, not an input or output of the function.
+between their two kernels, not an input or output of the function, as is
+K10's per-run bit offsets.  K8's bytes are its table (8 bytes a row) and
+start rows read once and the block written once; what bounds it is the
+latency of its r dependent loads a chain, which no bytes count shows.
 """
 
 from __future__ import annotations
@@ -172,10 +188,19 @@ REPLACES = {  # kernel -> the Pallas kernel it replaces
     "wide_decode_v2": "libbsc_tpu/ops/wide_kernels.py:1729",
     "byte_hist": "libbsc_tpu/ops/pallas_kernels.py:64",
     "adler_partials": "libbsc_tpu/ops/pallas_kernels.py:100",
+    # K8-K10 replace XLA programs of the JAX package, not Pallas kernels
+    "unbwt_chase": "libbsc_tpu/ops/bwt.py:870",
+    "sched_events": "libbsc_tpu/ops/wide_schedule.py:262",
+    "sched_planes": "libbsc_tpu/ops/wide_schedule.py:371",
 }
 V3 = ("wide_model", "wide_rans", "wide_decode")
 V2 = ("wide_rc_encode", "wide_decode_v2")
-SOURCE = {"wide_decode_v2": "wide_decode"}  # K4 is K3's template twin
+SCAN = ("unbwt_chase", "sched_events", "sched_planes")  # K8, K9, K10
+# the launches of K8-K10 in a -m9 -e4 -G encode and decode
+SCAN_ENCODE = {"unbwt_chase": 0, "sched_events": 1, "sched_planes": 1}
+SCAN_DECODE = {"unbwt_chase": 1, "sched_events": 0, "sched_planes": 0}
+SOURCE = {"wide_decode_v2": "wide_decode",  # K4 is K3's template twin
+          "sched_events": "wide_schedule", "sched_planes": "wide_schedule"}
 
 
 def make_corpus(n_bytes: int) -> bytes:
@@ -334,7 +359,8 @@ def stages(data: bytes, features: int, device) -> dict:
     coded = int(sum(((planes >> s) & 2).ne(0).sum() for s in (0, 2, 4, 6)))
     return {"U": u_host, "planes": planes, "sizes": sizes,
             "max_bits": max_bits, "coded": coded, "native": native,
-            "archive": archive}
+            "archive": archive, "lz": lz, "primary": int(primary),
+            "aux": aux, "r": r}
 
 
 def encode_payloads(st: dict) -> dict:
@@ -448,6 +474,27 @@ def hard_blocks(text: bytes) -> dict:
     return {"random": (rand.astype(np.uint8).tobytes(), None),
             "zeros": (bytes(zn), zeros.astype(np.int32)),
             "skewed": (text[:n // 8], skew.astype(np.int32))}
+
+
+def edge_block(lanes: int = 1024, lane_bytes: int = 300,
+               seed: int = 0xED6E) -> tuple:
+    """A block and its lane table with the bit schedule's edge cases: an
+    empty first lane, a lane of one run (5,000 zero bytes), a lane that
+    holds all 256 byte values (a run each, 255 down to 0, so the ranks
+    reach 255), an empty lane between live ones, then runs of 1-40 bytes
+    over four byte values cut into lanes at random points (runs cross
+    lane starts), and a sixteenth of the lanes dead at the end.  Returns
+    (bytes, int32 sizes summing to the length)."""
+    g = np.random.default_rng(seed)
+    head = [b"", bytes(5000), np.repeat(np.arange(255, -1, -1, dtype=np.uint8),
+                                        g.integers(1, 4, 256)).tobytes(), b""]
+    live = lanes - len(head) - lanes // 16
+    body = np.repeat(g.integers(0, 4, live * lane_bytes).astype(np.uint8),
+                     g.integers(1, 41, live * lane_bytes))[:live * lane_bytes]
+    cuts = np.sort(g.integers(0, len(body), live - 1))
+    spans = np.diff(np.concatenate([[0], cuts, [len(body)]]))
+    sizes = [len(h) for h in head] + spans.tolist() + [0] * (lanes // 16)
+    return b"".join(head) + body.tobytes(), np.asarray(sizes, np.int32)
 
 
 def check_hard_decode(text: bytes, device) -> None:
@@ -633,8 +680,12 @@ def main_path(data: bytes, features: int, composed: bytes, device,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     WK.reset_launches()
+    reset_scan_launches()
     archive, t_enc = timed(lambda: P.compress(data, **kw))
+    scan_enc = scan_launches()
+    reset_scan_launches()
     back, t_dec = timed(lambda: P.decompress(archive))
+    scan_dec = scan_launches()
     launches = dict(WK.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     WK.RANS = True
@@ -644,6 +695,10 @@ def main_path(data: bytes, features: int, composed: bytes, device,
     if min(launches[k] for k in ran) == 0 or max(launches[k] for k in idle):
         fail(f"{coder}: the main path did not run its kernels, and only "
              f"them: {launches}")
+    if scan_enc != SCAN_ENCODE or scan_dec != SCAN_DECODE:
+        fail(f"{coder}: K8-K10 did not launch once each where they run: "
+             f"encode {scan_enc}, decode {scan_dec}")
+    launches.update({k: scan_enc[k] + scan_dec[k] for k in SCAN})
     if archive != composed:
         fail(f"{coder}: the archive differs from the one composed from the "
              "stages")
@@ -705,6 +760,26 @@ def many(blocks: list, device) -> None:
           flush=True)
 
 
+def schedule_stages(U, stage) -> tuple:
+    """wide_kernels.resident_prep on the block U, its schedule split into
+    timed sub-stages (``stage(name, fn)``): lanes (device_balanced_sizes),
+    stats (run boundaries, counts, longest run: the refusals' inputs),
+    events (K9, and the read of max_bits), planes (K10) and transpose (to
+    K1's [IT/4, 1024] layout).  Returns resident_prep's tuple."""
+    from libbsc_tpu_torch.ops import wide_kernels as WK
+    from libbsc_tpu_torch.ops import wide_schedule as WS
+
+    sizes_d = stage("lanes", lambda: WS.device_balanced_sizes(U, WK.LANES))
+    starts, sizes64, frid_ext, R = stage(
+        "stats", lambda: sched_inputs(U, sizes_d))
+    ev, max_bits = stage("events", lambda: (lambda e: (e, int(e[3].max())))(
+        WS.schedule_events(U, starts, sizes64, frid_ext, R)))
+    IT = WK._it_bucket(max(max_bits, WK.TI))
+    packed = stage("planes", lambda: WS.schedule_planes(*ev, frid_ext, IT))
+    planes = stage("transpose", lambda: packed[:, : IT // 4].t().contiguous())
+    return planes, sizes_d.cpu().numpy().astype(np.int32), max_bits, IT
+
+
 def breakdown(data: bytes, features: int, archive: bytes, device) -> dict:
     """Wall milliseconds of each stage of the fused route on one block,
     each ending in a device synchronize (run after the main path, so
@@ -733,7 +808,9 @@ def breakdown(data: bytes, features: int, archive: bytes, device) -> dict:
     lz_d = stage("h2d", lambda: torch.from_numpy(lz).to(device))
     U, primary, aux = stage("bwt", lambda: bwt.bwt_encode_wideaux_device(
         lz_d, r))
-    prep = stage("schedule", lambda: WK.resident_prep(U))
+    prep = schedule_stages(U, stage)
+    ms["schedule"] = sum(ms[k] for k in ("lanes", "stats", "events",
+                                         "planes", "transpose"))
     probs = stage("k1", lambda: WK.model_probs(prep[0], prep[2]))
     k2 = stage("k2", lambda: WK.rans_encode(prep[0], probs, prep[2]))
     payload = stage("assemble", lambda: WK._assemble_rans(
@@ -745,8 +822,11 @@ def breakdown(data: bytes, features: int, archive: bytes, device) -> dict:
     parsed = stage("parse", lambda: WK._dec_parse(payload))
     args = stage("prep", lambda: WK._dec_args(parsed, device))
     U2 = stage("k3", lambda: WK.decode_lanes(*args))
-    T = stage("unbwt", lambda: bwt.unbwt_wideaux(
-        U2, int(primary), aux, r, len(lz)))
+    packed, heads = stage("psi", lambda: bwt.chase_inputs(
+        U2, int(primary), aux))
+    T = stage("chase", lambda: bwt.chase(packed, heads, r, len(lz)))
+    ms["unbwt"] = ms["psi"] + ms["chase"]
+    del packed, heads
     T_h = stage("d2h", lambda: T.cpu().numpy())
     out = T_h
     if lzp:
@@ -867,6 +947,206 @@ def time_stats(data: bytes, device) -> list:
         print(f"phase 2 time {name}: {ms:.4f} ms in a graph, {call_ms:.4f}"
               f" ms a Python call (bound {b:.4f} ms by {by}), plain "
               f"{plain_ms:.4f} ms{lib}, {n} bytes", flush=True)
+    return rows
+
+
+def scan_launches() -> dict:
+    """K8-K10's launch counts."""
+    from libbsc_tpu_torch.ops import bwt
+    from libbsc_tpu_torch.ops import wide_schedule as WS
+
+    return {**bwt.LAUNCHES, **WS.LAUNCHES}
+
+
+def reset_scan_launches() -> None:
+    from libbsc_tpu_torch.ops import bwt
+    from libbsc_tpu_torch.ops import wide_schedule as WS
+
+    bwt.reset_launches()
+    WS.reset_launches()
+
+
+def sched_inputs(u, sizes) -> tuple:
+    """What device_schedule_v2 hands K9 for the block ``u`` (on the card)
+    and the lane table ``sizes``: (starts, sizes, frid_ext, R)."""
+    import torch
+
+    from libbsc_tpu_torch.ops import wide_schedule as WS
+
+    sizes_d = torch.as_tensor(sizes).to(device=u.device, dtype=torch.int64)
+    starts, frid_ext, R, _, _ = WS.lane_runs(u, sizes_d)
+    return starts, sizes_d, frid_ext, R
+
+
+def max_err(a: tuple, b: tuple) -> int:
+    """Largest absolute difference over pairs of equal-shape tensors;
+    a shape mismatch is a failure."""
+    err = 0
+    for x, y in zip(a, b):
+        if x.shape != y.shape:
+            fail(f"shapes differ: {tuple(x.shape)} and {tuple(y.shape)}")
+        if x.numel():
+            err = max(err, int((x.long() - y.long()).abs().max()))
+    return err
+
+
+def check_scan(case: str, u: np.ndarray, sizes, device) -> dict:
+    """Phase 2 check of K8, K9 and K10 on one block ``u`` (the coder's
+    input, a BWT output) with the lane table ``sizes``, each against its
+    plain version on the same inputs, exactly: K9's per-run ranks,
+    lengths and bit counts and lane totals, K10's planes (also against
+    the native walker's planes for that table), and K8's chase of the
+    block's own wide-aux BWT (also against the block).  Returns name ->
+    max_abs_err (0, or the script fails)."""
+    import torch
+
+    from libbsc_tpu_torch import engine
+    from libbsc_tpu_torch.ops import bwt
+    from libbsc_tpu_torch.ops import wide_kernels as WK
+    from libbsc_tpu_torch.ops import wide_schedule as WS
+
+    n = len(u)
+    u_d = torch.from_numpy(np.array(u, np.uint8)).to(device)
+    starts, sizes_d, frid_ext, R = sched_inputs(u_d, sizes)
+    ev = WS.schedule_events(u_d, starts, sizes_d, frid_ext, R)
+    err = {"sched_events": max_err(ev, WS.schedule_events_plain(
+        u_d, starts, sizes_d, frid_ext))}
+    max_bits = int(ev[3].max())
+    IT = WK._it_bucket(max(max_bits, WK.TI))
+    planes = WS.schedule_planes(*ev, frid_ext, IT)
+    err["sched_planes"] = max_err((planes,), (WS.schedule_planes_plain(
+        *ev, frid_ext, IT),))
+    native, _, native_bits = lane_planes(u.tobytes(), sizes)
+    if native_bits != max_bits or not np.array_equal(
+            planes.t().cpu().numpy(), native):
+        fail(f"K9 + K10: the {case} block's planes differ from the native "
+             "walker's")
+    del planes, ev
+    r = engine.wideaux_rate(n)
+    U, primary, aux = bwt.bwt_encode_wideaux_device(u_d, r)
+    packed, heads = bwt.chase_inputs(U, int(primary), aux)
+    out = bwt.chase(packed, heads, r, n)
+    err["unbwt_chase"] = max_err((out,), (bwt.chase_plain(packed, heads, r,
+                                                          n),))
+    if out.cpu().numpy().tobytes() != u.tobytes():
+        fail(f"K8: the chase of the {case} block does not restore it")
+    for name, e in err.items():
+        if e:
+            fail(f"{name} differs from its plain version by {e} on the "
+                 f"{case} block")
+    print(f"phase 2 check {case}: K8, K9 and K10 equal to their plain "
+          f"versions, the planes to the native walker's, the chase to the "
+          f"block; {n} bytes, {R} runs, {int((sizes_d > 0).sum())} live "
+          f"lanes, {max_bits} iterations, {aux.shape[0] + 1} chains of "
+          f"{r}", flush=True)
+    return err
+
+
+def check_scan_all(st: dict, text: bytes, device) -> dict:
+    """check_scan on the 4 MiB block (its device lane table) and on the
+    hard blocks (each with its own table; the native balancer's for the
+    high-entropy one)."""
+    from libbsc_tpu_torch.ops import wide as W
+    from libbsc_tpu_torch.ops import wide_kernels as WK
+
+    data, sizes = edge_block()
+    errs = [check_scan("4 MiB", st["U"], st["sizes"], device),
+            check_scan("edges", np.frombuffer(data, np.uint8), sizes,
+                       device)]
+    for case, (data, sizes) in hard_blocks(text).items():
+        u = np.frombuffer(data, np.uint8)
+        if sizes is None:
+            sizes = lane_planes(data, None)[1]
+        if sizes is None:  # the native balancer gave no table
+            sizes = np.asarray(W.lane_sizes(len(u), WK.LANES), np.int32)
+        errs.append(check_scan(f"hard {case}", u, sizes, device))
+    return {name: {"max_abs_err": max(e[name] for e in errs)}
+            for name in SCAN}
+
+
+def time_scan(st: dict, device) -> list:
+    """Phase 2 time of K8, K9 and K10 with CUDA events on the 25 MiB
+    block's own inputs (the main path's: its BWT, device lane table and
+    wide-aux tail), each beside its plain version (timed once: a plain
+    version takes as long as the stage did before its kernel) and, for
+    K8, the library call that computes its table's PSI part (one stable
+    sort of the block's bytes).  Each kernel's output is held against its
+    plain version's here too, and K8's against the LZP'd block."""
+    import torch
+
+    from libbsc_tpu_torch.ops import bwt
+    from libbsc_tpu_torch.ops import wide_kernels as WK
+    from libbsc_tpu_torch.ops import wide_schedule as WS
+
+    u_d = torch.from_numpy(st["U"]).to(device)
+    n = len(st["U"])
+    starts, sizes_d, frid_ext, R = sched_inputs(u_d, st["sizes"])
+    L = int(starts.shape[0])
+    ev = WS.schedule_events(u_d, starts, sizes_d, frid_ext, R)
+    max_bits = int(ev[3].max())
+    IT = WK._it_bucket(max(max_bits, WK.TI))
+    lanes = {"longest_lane": int(st["sizes"].max()),  # what K9 scans
+             "longest_run": int(ev[1].max())}
+    r, primary = st["r"], st["primary"]
+    packed, heads = bwt.chase_inputs(u_d, primary, st["aux"])
+    chains = int(heads.shape[0])
+    runs = {  # name -> (kernel, plain, library call, bytes, operations)
+        "sched_events": (
+            lambda: WS.schedule_events(u_d, starts, sizes_d, frid_ext, R),
+            lambda: WS.schedule_events_plain(u_d, starts, sizes_d,
+                                             frid_ext),
+            None, n + 8 * (3 * L + 1) + 12 * R + 8 * L, R),
+        "sched_planes": (
+            lambda: WS.schedule_planes(*ev, frid_ext, IT),
+            lambda: WS.schedule_planes_plain(*ev, frid_ext, IT),
+            None, 12 * R + 8 * (2 * L + 1) + L * IT // 4, L * IT),
+        "unbwt_chase": (
+            lambda: bwt.chase(packed, heads, r, n),
+            lambda: bwt.chase_plain(packed, heads, r, n),
+            lambda: torch.sort(u_d, stable=True),
+            8 * (n + 1) + 8 * chains + n, n),
+    }
+    rows = []
+    for name, (kernel, plain, library, nbytes, ops) in runs.items():
+        ms = cuda_ms(kernel, TIMED_LAUNCHES)
+        out = kernel()
+        out = out if isinstance(out, tuple) else (out,)
+        out_p, plain_ms = timed(plain)
+        out_p = out_p if isinstance(out_p, tuple) else (out_p,)
+        if max_err(out, out_p):
+            fail(f"{name} differs from its plain version on the 25 MiB "
+                 "block")
+        del out_p
+        if name == "unbwt_chase" and \
+                out[0].cpu().numpy().tobytes() != st["lz"].tobytes():
+            fail("K8: the chase of the 25 MiB block does not restore it")
+        del out
+        lib_ms = None if library is None else cuda_ms(library,
+                                                      TIMED_LAUNCHES)
+        b, by = bound_ms(nbytes, ops)
+        rows.append({"name": name, "route": "cuda",
+                     "source": "libbsc_tpu_torch/csrc/"
+                               f"{SOURCE.get(name, name)}.cu",
+                     "replaces": REPLACES[name], "ms": ms,
+                     "plain_ms": plain_ms, "plain_at_bytes": n,
+                     "bound_ms": b, "bound_by": by, "library_ms": lib_ms,
+                     "runs": R, "iters": max_bits, "chains": chains,
+                     "rate": r, **lanes})
+        lib = ""
+        if library is not None:  # the table K8 chases, and its sort
+            rows[-1]["table_ms"] = cuda_ms(
+                lambda: bwt.chase_inputs(u_d, primary, st["aux"]),
+                TIMED_LAUNCHES)
+            rows[-1]["int64_sort_ms"] = cuda_ms(
+                lambda: torch.sort(u_d.long(), stable=True), TIMED_LAUNCHES)
+            lib = (f", torch.sort(stable=True) of the block {lib_ms:.3f} ms "
+                   f"(of its int64 copy {rows[-1]['int64_sort_ms']:.3f}), "
+                   f"chase_inputs {rows[-1]['table_ms']:.3f} ms")
+        print(f"phase 2 time {name}: {ms:.3f} ms (bound {b:.4f} ms by {by})"
+              f", plain {plain_ms:.1f} ms{lib}; {n} bytes, {R} runs, "
+              f"{max_bits} iterations, {chains} chains of {r}, longest lane "
+              f"{lanes['longest_lane']} bytes, longest run "
+              f"{lanes['longest_run']}", flush=True)
     return rows
 
 
@@ -1638,8 +1918,10 @@ def sched_payloads(u: bytes, device) -> None:
         host, t_host = timed(lambda: WK._host_prep(u, device))
         want = WK.device_encode(u, device)
         os.environ["TBSC_WIDE_DEV_SCHED"] = "1"
+        reset_scan_launches()
         dev, t_dev = timed(lambda: WK._host_prep(u, device))
         got = WK.device_encode(u, device)
+        launched = scan_launches()
     finally:
         if saved is None:
             os.environ.pop("TBSC_WIDE_DEV_SCHED", None)
@@ -1651,8 +1933,12 @@ def sched_payloads(u: bytes, device) -> None:
             dev[2] != host[2] or got != want or want is None:
         fail("TBSC_WIDE_DEV_SCHED: planes or payload differ from the "
              "native walker's")
+    if launched != {"unbwt_chase": 0, "sched_events": 2, "sched_planes": 2}:
+        fail(f"TBSC_WIDE_DEV_SCHED: K9 and K10 did not launch once a "
+             f"schedule: {launched}")
     print(f"phase 10 (c) device_schedule: TBSC_WIDE_DEV_SCHED planes and "
-          f"payload equal to the native walker's ({host[2]} iterations); "
+          f"payload equal to the native walker's ({host[2]} iterations; "
+          f"K9 and K10 launched once a schedule); "
           f"schedule on the card {t_dev:.1f} ms, native lane table and "
           f"walker {t_host:.1f} ms; {smi()}", flush=True)
 
@@ -1824,15 +2110,25 @@ def main() -> int:
                 print(f"  {src.stem}: {line.strip()}")
 
     features = C.FEATURE_FASTMODE | C.FEATURE_MULTITHREADING | C.FEATURE_CUDA
+    seconds = {}  # phase -> wall seconds, for the run-time line
+
+    def lap(phase: str) -> None:
+        seconds[phase] = time.perf_counter() - t0 - sum(seconds.values())
+
+    lap("1")
     data = make_corpus(BLOCK)
-    checked = check_kernels(stages(data[:PLAIN_BLOCK], features, device),
-                            device)
+    st = stages(data[:PLAIN_BLOCK], features, device)
+    checked = check_kernels(st, device)
+    checked.update(check_scan_all(st, data, device))
+    del st
     check_hard_decode(data, device)
     check_hard_encode(data, device)
     checked.update(check_stats(data, device))
     st = stages(data, features, device)
     rows = time_kernels(st, device, clock_mhz)
+    scan_rows = time_scan(st, device)
     stats_rows = time_stats(data, device)
+    lap("2")
     composed = st["archive"]
     del st
     torch.cuda.empty_cache()
@@ -1842,15 +2138,20 @@ def main() -> int:
     launches.update({k: v for k, v in main_path(
         data, features, composed[False], device, rans=False)[0].items()
         if k in V2})
+    lap("3-4")
     corpus = make_corpus(MANY_BLOCKS * BLOCK)
     many([corpus[i * BLOCK:(i + 1) * BLOCK] for i in range(MANY_BLOCKS)],
          device)
+    lap("5")
     launches.update(transform_step(
         [corpus[i * BLOCK:(i + 1) * BLOCK] for i in range(STEP_BLOCKS)],
         features, device))
+    lap("6")
     st_device_path(data, features, device)
+    lap("7")
     cli_launches = cli_path(corpus[:2 * BLOCK + CLI_TAIL], features, device,
                             repo)
+    lap("8")
     t9 = time.perf_counter()
     sharded_st([corpus[i * BLOCK:(i + 1) * BLOCK] for i in range(2)],
                features, device)
@@ -1865,15 +2166,19 @@ def main() -> int:
     lockstep_rc(device)
     traced(data, features, device)
     print(f"phase 10 took {time.perf_counter() - t10:.1f} s", flush=True)
+    lap("9-10")
+    print("run time (s): " + ", ".join(
+        f"phase {k} {v:.1f}" for k, v in seconds.items())
+        + f"; all {time.perf_counter() - t0:.1f}", flush=True)
     for r in rows:
         r.update(checked[r["name"]], launches=launches[r["name"]],
                  plain_at_bytes=PLAIN_BLOCK)
         if r["name"] in cli_launches:
             r["cli_launches"] = cli_launches[r["name"]]
             r["farm_launches"] = farm_launches[r["name"]]
-    for r in stats_rows:
+    for r in stats_rows + scan_rows:
         r.update(checked[r["name"]], launches=launches[r["name"]])
-    print(json.dumps({"kernels": rows + stats_rows}))
+    print(json.dumps({"kernels": rows + stats_rows + scan_rows}))
     print(smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -102,6 +102,12 @@ _SIGNATURES = {
     "byte_hist": ("byte_hist", "byte_hist_launch", [_VP, _L, _VP, _VP]),
     "adler_partials": ("adler_partials", "adler_partials_launch",
                        [_VP, _L, _VP, _VP]),
+    "unbwt_chase": ("unbwt_chase", "unbwt_chase_launch",
+                    [_VP, _VP, _I, _I, _L, _VP, _VP]),
+    "sched_events": ("wide_schedule", "sched_events_launch",
+                     [_VP] * 4 + [_I] + [_VP] * 5),
+    "sched_planes": ("wide_schedule", "sched_planes_launch",
+                     [_VP] * 5 + [_I, _L, _VP, _VP, _VP]),
 }
 
 

@@ -24,16 +24,26 @@ Inverse of the default format (:func:`bwt_decode`, the ``TBSC_ENGINE=ops``
 route): the LF permutation is list-ranked by pointer doubling, a fixed
 ceil(log2 n) rounds of two gathers each, with no host sync.  Inverse of the
 wide-aux profile: the tail gives (n-1)//r + 1 independent forward chains
-(the primary and each aux index); they are chased together, one gather of
-the packed (first char, PSI) table per step, for r steps.
+(the primary and each aux index), chased by K8 (``csrc/unbwt_chase.cu``,
+one thread a chain; its plain version :func:`chase_plain` gathers the
+packed (first char, PSI) table for every chain at once, r steps).
 """
 
 from __future__ import annotations
 
 import torch
 
+from . import _cuda
+
 _BOOT_DEPTH = 15
 _TWO32 = 1 << 32
+
+LAUNCHES = {"unbwt_chase": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
 
 
 def aux_rate(n: int) -> int:
@@ -451,24 +461,63 @@ def bwt_encode_wideaux_device(data: torch.Tensor, r: int):
     return _extract_bwt_impl(data, rank, r)
 
 
+def chase_inputs(T: torch.Tensor, index: int, aux: torch.Tensor):
+    """The wide-aux chase's table and start rows.  The table, int64
+    [n + 1]: row k holds (first char of row k) << 32 | PSI[k], from one
+    stable sort of the BWT chars: the sorted chars are the rows' first
+    chars (row 0, the sentinel, has char 0), and the positions they came
+    from are PSI[1..]; PSI[0] is the primary.  The start rows, int64
+    [chains]: the primary, then each aux index + 1."""
+    head = torch.tensor([index], device=T.device)
+    chars, u_sorted = torch.sort(T, stable=True)
+    psi = torch.cat([head, u_sorted + (u_sorted >= index).long()])
+    row_char = torch.cat([torch.zeros_like(head), chars.long()])
+    return (row_char << 32) | psi, torch.cat([head, aux.long() + 1])
+
+
 def unbwt_wideaux(T: torch.Tensor, index: int, aux: torch.Tensor, r: int,
                   n: int) -> torch.Tensor:
     """Inverse BWT for the wide-aux profile: chain t starts at row
     aux[t-1] + 1 (chain 0 at the primary) and emits positions
-    [t r, (t+1) r).  PSI comes from one stable sort of the BWT chars;
-    each step gathers (first char << 32 | PSI) for every chain."""
-    dev = T.device
-    d = T.long()
-    u_sorted = torch.sort(d, stable=True).indices
-    psi_tail = u_sorted + (u_sorted >= index).long()
-    psi = torch.cat([torch.tensor([index], device=dev), psi_tail])
-    cnt = torch.bincount(d, minlength=256)
-    row_char = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
-                          torch.repeat_interleave(
-                              torch.arange(256, device=dev), cnt)])
-    packed = (row_char << 32) | psi
-    k = torch.cat([torch.tensor([index], device=dev), aux.long() + 1])
-    out = torch.empty((r, k.shape[0]), dtype=torch.uint8, device=dev)
+    [t r, (t+1) r); :func:`chase_inputs`, then K8 (:func:`chase`)."""
+    return chase(*chase_inputs(T, index, aux), r, n)
+
+
+def chase(packed: torch.Tensor, starts: torch.Tensor, r: int,
+          n: int) -> torch.Tensor:
+    """K8.  u8 [min(n, chains * r)]: chain t walks r steps from row
+    ``starts[t]`` through :func:`chase_inputs`'s ``packed``, emitting the
+    char of each row it leaves at position t r + step.  The rows must lie
+    in [0, len(packed)): the API checks the wide-aux tail first."""
+    for t in (packed, starts):
+        if t.dtype != torch.int64 or t.dim() != 1 or not t.is_contiguous():
+            raise ValueError("chase: packed and starts must be contiguous "
+                             "1-D int64 tensors")
+    dev = packed.device
+    if starts.device != dev or dev.type not in ("cpu", "cuda") or r < 1:
+        raise ValueError("chase: inputs on different or unsupported "
+                         f"devices, or a rate {r} below 1")
+    if dev.type == "cpu":
+        return chase_plain(packed, starts, r, n)
+    chains = int(starts.shape[0])
+    out = torch.empty(min(n, chains * r), dtype=torch.uint8, device=dev)
+    if out.numel():
+        with torch.cuda.device(dev):
+            rc = _cuda.launcher("unbwt_chase")(
+                packed.data_ptr(), starts.data_ptr(), chains, r, n,
+                out.data_ptr(), _cuda.stream_handle(dev))
+        _cuda.check("unbwt_chase", rc)
+        LAUNCHES["unbwt_chase"] += 1
+    return out
+
+
+def chase_plain(packed: torch.Tensor, starts: torch.Tensor, r: int,
+                n: int) -> torch.Tensor:
+    """K8's plain version: every chain steps at once, one gather of the
+    packed table a step."""
+    k = starts
+    out = torch.empty((r, k.shape[0]), dtype=torch.uint8,
+                      device=packed.device)
     for step in range(r):
         w = packed[k]
         out[step] = (w >> 32).to(torch.uint8)

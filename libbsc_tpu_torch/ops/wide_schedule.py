@@ -1,21 +1,24 @@
-"""Device lane balancing and bit schedule for CODER_QLFC_WIDE, in torch ops.
+"""Device lane balancing and bit schedule for CODER_QLFC_WIDE.
 
 From the transformed block (on the device) and the lane table, build the
 per-lane packed 2-bit (bit | active) iteration planes that K1 and K2
-consume — the same planes as the native walker (tbsc_wide_schedule_packed),
-without a sequential per-byte walk:
+consume, the same planes as the native walker (tbsc_wide_schedule_packed):
 
-1. run boundaries on the flat block; the run starts, in order, are the
-   events, laid on an [L, E] grid (E = bucketed most runs in a lane);
-2. MTF ranks without an MTF table: with the identity-initialized table the
-   rank of an event with char c is the number of distinct chars seen since
-   c's previous occurrence, or, for a first occurrence, S + c - #{seen
-   d < c} (S = distinct chars seen so far) — one running-max pass per
-   char present in the block;
-3. per-event bit counts, then the expansion to the flat bit sequence
-   (flag / unary exponent / mantissa, rank then run): one packed word per
-   event scattered at its bit offset and forward-filled with cummax, so
-   every iteration finds its owning event without a gather.
+1. run boundaries on the flat block (lane starts force one), the run
+   count, the most runs in a lane and the longest run (:func:`lane_runs`,
+   torch), which decide the refusals below;
+2. K9 (:func:`schedule_events`, ``csrc/wide_schedule.cu``): for every
+   run, in global run order, its move-to-front rank, its length and its
+   bit count, and each lane's bit total;
+3. K10 (:func:`schedule_planes`, the same source): the packed planes
+   u8 [L, IT/4] from those, fields past a lane's total 0.
+
+The kernels launch for CUDA tensors and count their launches in
+``LAUNCHES``; for CPU tensors the wrappers run their plain versions, the
+JAX package's XLA formulation ported op for op: the runs on an [L, E]
+grid, MTF ranks without a table (one running-max pass per char present),
+and an expansion that forward-fills one packed word per event with cummax
+(:func:`_events2`, :func:`_expand2`).
 
 :func:`device_schedule_v2` refuses blocks the JAX package's v2 sends to
 the host walker; :func:`device_schedule` (the JAX package's v1, for an
@@ -31,12 +34,22 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import _cuda
 from . import wide as W
 
 _S_SHIFT = 14   # low bits of the event word: rank << 6 | run bit-length
 _IT_CAP = 1 << 19  # the JAX package's v2 packing cap (32 - its 13-bit
 # shift), kept so both packages send the same blocks to the host walker
+_GRID_CAP = 1 << 27  # the most [L, E] event-grid cells v2 takes (the JAX
+# package's limit; the kernels build no grid, but the refusal stays)
 _LANE_CHUNK = 128  # lanes expanded at a time (bounds the [lanes, IT] temps)
+
+LAUNCHES = {"sched_events": 0, "sched_planes": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
 
 
 def _bucket(x: int, lo: int) -> int:
@@ -69,23 +82,40 @@ def device_balanced_sizes(data: torch.Tensor, L: int) -> torch.Tensor:
     return (bounds[1:] - bounds[:-1]).to(torch.int32)
 
 
-def _stats(data: torch.Tensor, starts: torch.Tensor):
-    """(runs R, most runs in a lane, longest run) and the run-boundary
-    mask / running run count the event pass reuses."""
+def _run_starts(data: torch.Tensor, starts: torch.Tensor) -> torch.Tensor:
+    """Run-start mask of the block: a byte that differs from the one
+    before it, or a lane start."""
     n = data.shape[0]
-    pos = torch.arange(n, device=data.device)
     nr = torch.zeros(n, dtype=torch.bool, device=data.device)
-    nr[starts[starts < n]] = True  # lane starts force a boundary
+    nr[starts[starts < n]] = True
     nr[0] = True
     nr[1:] |= data[1:] != data[:-1]
-    cum = nr.cumsum(0)
-    R = cum[-1]
-    frid = torch.where(starts >= n, R, cum[starts.clamp(0, n - 1)] - 1)
-    frid_ext = torch.cat([frid, R[None]])
-    maxpl = (frid_ext[1:] - frid_ext[:-1]).max()
-    lastb = torch.cummax(torch.where(nr, pos, -1), 0).values
-    maxrun = (pos - lastb).max() + 1
-    return torch.stack([R, maxpl, maxrun]), nr, cum, frid
+    return nr
+
+
+def lane_runs(data: torch.Tensor, sizes: torch.Tensor):
+    """The runs of the lane table ``sizes`` (int64 [L] on data's device;
+    the lanes tile the block): (lane starts int64 [L], frid_ext int64
+    [L + 1]: each lane's first global run id, then the run count R; R;
+    the most runs in a lane; the longest run).  From the run starts'
+    positions, with two host syncs, not from running maxima: torch's
+    cummax over a 1-D tensor on CUDA runs in one block and took 79 ms at
+    25 MiB."""
+    n = data.shape[0]
+    starts = sizes.cumsum(0) - sizes
+    rs = torch.nonzero(_run_starts(data, starts))[:, 0]
+    R = int(rs.shape[0])
+    frid_ext = torch.cat([torch.searchsorted(rs, starts),  # a lane start
+                          torch.full_like(rs[:1], R)])    # is a run start
+    ends = torch.cat([rs[1:], torch.full_like(rs[:1], n)])
+    maxpl, maxrun = torch.stack([(frid_ext[1:] - frid_ext[:-1]).max(),
+                                 (ends - rs).max()]).tolist()
+    return starts, frid_ext, R, maxpl, maxrun
+
+
+def _grid_width(maxpl: int) -> int:
+    """E, the [L, E] event grid's width for a lane of ``maxpl`` runs."""
+    return _bucket(max(maxpl, 256), 256)
 
 
 def _events2(data, starts, sizes, nr, cum, frid, E: int):
@@ -205,31 +235,139 @@ def _expand2(rank, ev_len, B, total, IT: int) -> torch.Tensor:
     return out
 
 
+def _check_i64(name: str, *ts: torch.Tensor) -> None:
+    for t in ts:
+        if t.dtype != torch.int64 or t.dim() != 1 or not t.is_contiguous():
+            raise ValueError(f"{name}: expected contiguous 1-D int64 "
+                             "tensors")
+
+
+def _device(name: str, *ts: torch.Tensor) -> torch.device:
+    dev = ts[0].device
+    if any(t.device != dev for t in ts) or dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: inputs on different or unsupported "
+                         "devices")
+    return dev
+
+
+def schedule_events(data: torch.Tensor, starts: torch.Tensor,
+                    sizes: torch.Tensor, frid_ext: torch.Tensor, R: int):
+    """K9.  For the lanes [starts[k], starts[k] + sizes[k]) of ``data``
+    (the lanes tile the block), whose runs have the global ids
+    ``frid_ext[k] .. frid_ext[k+1] - 1`` (``R`` runs in all; see
+    :func:`lane_runs`): each run's move-to-front rank, length and bit
+    count, int32 [R] each, and each lane's bit total, int64 [L]."""
+    if data.dtype != torch.uint8 or data.dim() != 1 \
+            or not data.is_contiguous():
+        raise ValueError("schedule_events: data must be contiguous u8[n]")
+    _check_i64("schedule_events", starts, sizes, frid_ext)
+    dev = _device("schedule_events", data, starts, sizes, frid_ext)
+    if dev.type == "cpu":
+        return schedule_events_plain(data, starts, sizes, frid_ext)
+    if data.data_ptr() % 16:  # K9 reads aligned 16-byte words
+        data = data.clone()
+    L = int(starts.shape[0])
+    rank, ev_len, B = (torch.empty(R, dtype=torch.int32, device=dev)
+                       for _ in range(3))
+    total = torch.empty(L, dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):
+        rc = _cuda.launcher("sched_events")(
+            data.data_ptr(), starts.data_ptr(), sizes.data_ptr(),
+            frid_ext.data_ptr(), L, rank.data_ptr(), ev_len.data_ptr(),
+            B.data_ptr(), total.data_ptr(), _cuda.stream_handle(dev))
+    _cuda.check("sched_events", rc)
+    LAUNCHES["sched_events"] += 1
+    return rank, ev_len, B, total
+
+
+def schedule_events_plain(data, starts, sizes, frid_ext):
+    """K9's plain version: :func:`_events2` on the [L, E] grid, its valid
+    cells read out in global run order."""
+    nr = _run_starts(data, starts)
+    nruns = frid_ext[1:] - frid_ext[:-1]
+    E = _grid_width(int(nruns.max()))
+    rank, ev_len, B, total = _events2(data, starts, sizes, nr,
+                                      nr.cumsum(0), frid_ext[:-1], E)
+    valid = torch.arange(E, device=data.device)[None, :] < nruns[:, None]
+    return (rank[valid].to(torch.int32), ev_len[valid].to(torch.int32),
+            B[valid].to(torch.int32), total)
+
+
+def schedule_planes(rank: torch.Tensor, ev_len: torch.Tensor,
+                    B: torch.Tensor, total: torch.Tensor,
+                    frid_ext: torch.Tensor, IT: int) -> torch.Tensor:
+    """K10.  Packed planes u8 [L, IT/4] from K9's per-run values: each
+    lane's events laid end to end from bit 0 in _expand2's bit order,
+    fields at or past the lane's total 0.  IT is a multiple of 16 and at
+    least every lane's total."""
+    for t in (rank, ev_len, B):
+        if t.dtype != torch.int32 or t.dim() != 1 \
+                or not t.is_contiguous():
+            raise ValueError("schedule_planes: per-run values must be "
+                             "contiguous int32[R]")
+    _check_i64("schedule_planes", total, frid_ext)
+    if IT % 16 or IT >= 1 << 31:
+        raise ValueError(f"schedule_planes: IT {IT} is not a multiple of "
+                         "16 below 2^31")
+    dev = _device("schedule_planes", rank, ev_len, B, total, frid_ext)
+    if dev.type == "cpu":
+        return schedule_planes_plain(rank, ev_len, B, total, frid_ext, IT)
+    L = int(total.shape[0])
+    out = torch.empty((L, IT // 4), dtype=torch.uint8, device=dev)
+    scratch = torch.empty(rank.shape[0], dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = _cuda.launcher("sched_planes")(
+            rank.data_ptr(), ev_len.data_ptr(), B.data_ptr(),
+            total.data_ptr(), frid_ext.data_ptr(), L, IT // 16,
+            scratch.data_ptr(), out.data_ptr(), _cuda.stream_handle(dev))
+    _cuda.check("sched_planes", rc)
+    LAUNCHES["sched_planes"] += 1
+    return out
+
+
+def schedule_planes_plain(rank, ev_len, B, total, frid_ext,
+                          IT: int) -> torch.Tensor:
+    """K10's plain version: the per-run values back on the [L, E] grid,
+    then :func:`_expand2`."""
+    dev = rank.device
+    nruns = frid_ext[1:] - frid_ext[:-1]
+    E = _grid_width(int(nruns.max()))
+    col = torch.arange(E, device=dev)[None, :]
+    valid = col < nruns[:, None]
+    idx = (frid_ext[:-1, None] + col).clamp(max=rank.shape[0] - 1)
+
+    def grid(v, fill):
+        return torch.where(valid, v.long()[idx], fill)
+
+    return _expand2(grid(rank, 0), grid(ev_len, 1), grid(B, 0), total, IT)
+
+
+def _plane_length(max_bits: int, it_bucket) -> int:
+    return it_bucket(max_bits) if it_bucket else _bucket(max(max_bits, 256),
+                                                         256)
+
+
 def device_schedule_v2(data: torch.Tensor, sizes, L: int, it_bucket=None):
     """Packed per-lane iteration planes u8 [L, IT/4] (on data's device)
-    and max_bits.  ``sizes`` is the lane table (host array or tensor).
-    Returns (None, -1) when the block takes the host walker instead: a run
-    of 2^RUN_EXP_CAP bytes or more, an [L, E] event grid past 2^27, or an
+    and max_bits.  ``sizes`` is the lane table (host array or tensor,
+    summing to n).  Returns (None, -1) when the block takes the host
+    walker instead: a run of 2^RUN_EXP_CAP bytes or more, an [L, E] event
+    grid past 2^27 cells (E: the most runs in a lane, bucketed), or an
     iteration count at or past the packing cap."""
-    n = data.shape[0]
     sizes_d = torch.as_tensor(sizes).to(device=data.device,
                                         dtype=torch.int64)
-    starts = sizes_d.cumsum(0) - sizes_d
-    stats, nr, cum, frid = _stats(data, starts)
-    _R, maxpl, maxrun = stats.tolist()
+    starts, frid_ext, R, maxpl, maxrun = lane_runs(data, sizes_d)
     if maxrun >= (1 << W.RUN_EXP_CAP):
         return None, -1
-    E = _bucket(max(maxpl, 256), 256)
-    if L * E > (1 << 27):
+    if L * _grid_width(maxpl) > _GRID_CAP:
         return None, -1
-    rank, ev_len, B, total = _events2(data, starts, sizes_d, nr, cum, frid,
-                                      E)
+    rank, ev_len, B, total = schedule_events(data, starts, sizes_d,
+                                             frid_ext, R)
     max_bits = int(total.max())
-    IT = it_bucket(max_bits) if it_bucket else _bucket(max(max_bits, 256),
-                                                       256)
+    IT = _plane_length(max_bits, it_bucket)
     if IT >= _IT_CAP:
         return None, -1
-    return _expand2(rank, ev_len, B, total, IT), max_bits
+    return schedule_planes(rank, ev_len, B, total, frid_ext, IT), max_bits
 
 
 def device_schedule(data: torch.Tensor, sizes, L: int, it_bucket=None):
@@ -239,10 +377,9 @@ def device_schedule(data: torch.Tensor, sizes, L: int, it_bucket=None):
     package's v1 ``device_schedule`` and of the native walker.
 
     The JAX v1 pads [L, C] planes to the largest lane and runs 256
-    running-max passes over them; this builds the same planes from the v2
-    pieces (:func:`_events2`, :func:`_expand2`) on the [L, E] event grid.
+    running-max passes over them; this runs the v2 pieces (K9, K10).
     Unlike :func:`device_schedule_v2` it refuses no block: v1 has no
-    packing cap, and the int64 event words here need none.
+    packing cap, and K10 takes any plane length.
     ``it_bucket(max_bits) -> IT`` picks the plane length (default: a power
     of two from 256)."""
     sizes_np = np.asarray(sizes, dtype=np.int64)
@@ -252,12 +389,9 @@ def device_schedule(data: torch.Tensor, sizes, L: int, it_bucket=None):
                          "most the block's length")
     data = data[:n]
     sizes_d = torch.from_numpy(sizes_np).to(data.device)
-    starts = sizes_d.cumsum(0) - sizes_d
-    stats, nr, cum, frid = _stats(data, starts)
-    E = _bucket(max(int(stats[1]), 256), 256)
-    rank, ev_len, B, total = _events2(data, starts, sizes_d, nr, cum, frid,
-                                      E)
+    starts, frid_ext, R, _, _ = lane_runs(data, sizes_d)
+    rank, ev_len, B, total = schedule_events(data, starts, sizes_d,
+                                             frid_ext, R)
     max_bits = int(total.max())
-    IT = it_bucket(max_bits) if it_bucket else _bucket(max(max_bits, 256),
-                                                       256)
-    return _expand2(rank, ev_len, B, total, IT), max_bits
+    IT = _plane_length(max_bits, it_bucket)
+    return schedule_planes(rank, ev_len, B, total, frid_ext, IT), max_bits

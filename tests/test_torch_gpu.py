@@ -1,4 +1,4 @@
-"""The CUDA kernels K1-K7 against their plain PyTorch versions on the card,
+"""The CUDA kernels K1-K10 against their plain PyTorch versions on the card,
 at small size, the fused -m9 -e4 -G route through them (v3 and v2 coder),
 the pipelined many-block entry points, the sharded transform step on a
 one-GPU mesh (K6 in its stage 1), the -m5 -G device ST route, the
@@ -6,7 +6,10 @@ CLI: -m9 -e4 -G through K1, K2 and K3, and the -G default config through
 the device BWT, the sample-sort ST step on a mesh that lists cuda:0
 twice, the DC3 device BWT, the list-ranking inverse BWT (on cuda against
 its CPU run at 4 MiB, and through the API under TBSC_ENGINE=ops) and the
-lockstep range coder against the serial reference.
+lockstep range coder against the serial reference; K8 (the wide-aux
+chase) at any rate, K9 and K10 (the bit schedule) on its edge block and
+the hard blocks, their launches on the fused route, and the v1 schedule
+(TBSC_WIDE_DEV_SCHED) through them against the native walker.
 
 These tests need a CUDA device and skip without one.  tests/conftest.py
 imports JAX, which a GPU machine need not have, so run them there with
@@ -23,6 +26,7 @@ import torch
 import libbsc_tpu_torch as P
 from libbsc_tpu_torch import constants as C
 from libbsc_tpu_torch import native
+from libbsc_tpu_torch.ops import bwt as BW
 from libbsc_tpu_torch.ops import wide as W
 from libbsc_tpu_torch.ops import wide_kernels as WK
 from libbsc_tpu_torch.ops import wide_schedule as WS
@@ -528,3 +532,93 @@ def test_wide_rc_on_cuda_equals_the_serial_reference(cuda):
     probs = [[(p, prec) for _, p, prec in seq] for seq in lanes]
     bits = wide_rc.decode(probs, streams, device=cuda)
     assert bits == [[b for b, _, _ in seq] for seq in lanes]
+
+
+_SCAN = ("sched_events", "sched_planes", "unbwt_chase")
+
+
+def _scan_launches() -> dict:
+    return {**BW.LAUNCHES, **WS.LAUNCHES}
+
+
+@pytest.mark.parametrize("case", ["edges", "random", "zeros", "skewed"])
+def test_scan_kernels_equal_plain_on_hard_blocks(cuda, case):
+    """K8, K9 and K10 against their plain versions through
+    chip_smoke.check_scan (also: K10's planes against the native walker's
+    for the same lane table, K8's chase against the block) on the
+    schedule's edge block (an empty lane, a one-run lane, all 256 byte
+    values, runs across lane starts, dead lanes) and the hard blocks."""
+    from chip_smoke import check_scan, edge_block, hard_blocks, lane_planes
+
+    if case == "edges":
+        data, sizes = edge_block()
+    else:
+        data, sizes = hard_blocks(_text(1 << 20, 45))[case]
+        if sizes is None:
+            sizes = lane_planes(data, None)[1]
+    if sizes is None:
+        sizes = np.asarray(W.lane_sizes(len(data), WK.LANES), np.int32)
+    before = _scan_launches()
+    err = check_scan(case, np.frombuffer(data, np.uint8), sizes, cuda)
+    torch.cuda.synchronize()
+    assert err == dict.fromkeys(_SCAN, 0)
+    assert all(_scan_launches()[k] == before[k] + 1 for k in _SCAN)
+
+
+@pytest.mark.parametrize("r", [1, 100, 256, 1000, 4096])
+def test_chase_kernel_at_any_rate(cuda, r):
+    """K8 with 16-byte stores (r a multiple of 16) and a byte a step
+    (other r), n = 37 r - 1, 37 r and 37 r + 1."""
+    for n in (37 * r - 1, 37 * r, 37 * r + 1):
+        data = _text(n, r + n)
+        d = torch.from_numpy(np.frombuffer(data, np.uint8).copy()).to(cuda)
+        U, primary, aux = BW.bwt_encode_wideaux_device(d, r)
+        packed, heads = BW.chase_inputs(U, int(primary), aux)
+        before = BW.LAUNCHES["unbwt_chase"]
+        out = BW.chase(packed, heads, r, n)
+        torch.cuda.synchronize()
+        assert BW.LAUNCHES["unbwt_chase"] == before + 1
+        assert torch.equal(out, BW.chase_plain(packed, heads, r, n))
+        assert out.cpu().numpy().tobytes() == data
+
+
+def test_fused_route_launches_k8_to_k10_once(cuda, monkeypatch):
+    """-m9 -e4 -G: K9 and K10 once in the encode, K8 once in the
+    decode."""
+    monkeypatch.setenv("TBSC_WIDE_LANES", "1024")
+    data = _text(3 << 19, 1536)
+    P.init(C.FEATURE_FASTMODE | C.FEATURE_CUDA, device=cuda)
+    BW.reset_launches()
+    WS.reset_launches()
+    blob = P.compress(data, block_sorter=C.BLOCKSORTER_BWT_WIDEAUX,
+                      coder=C.CODER_QLFC_WIDE)
+    assert _scan_launches() == {"unbwt_chase": 0, "sched_events": 1,
+                                "sched_planes": 1}
+    BW.reset_launches()
+    WS.reset_launches()
+    assert P.decompress(blob) == data
+    assert _scan_launches() == {"unbwt_chase": 1, "sched_events": 0,
+                                "sched_planes": 0}
+
+
+def test_v1_schedule_through_k9_k10_equals_native(cuda, monkeypatch):
+    """device_schedule (v1) on the card: the edge block's planes equal the
+    native walker's; TBSC_WIDE_DEV_SCHED's per-stage prep on a text block
+    equals the native route's, through K9 and K10."""
+    from chip_smoke import edge_block, lane_planes
+
+    data, sizes = edge_block()
+    WS.reset_launches()
+    planes, mb = WS.device_schedule(
+        torch.from_numpy(np.frombuffer(data, np.uint8).copy()).to(cuda),
+        sizes, WK.LANES, it_bucket=lambda m: WK._it_bucket(max(m, WK.TI)))
+    native_planes, _, native_mb = lane_planes(data, sizes)
+    assert mb == native_mb
+    assert np.array_equal(planes.t().cpu().numpy(), native_planes)
+    text = _text(600_000, 61)
+    host = WK._host_prep(text, cuda)
+    monkeypatch.setenv("TBSC_WIDE_DEV_SCHED", "1")
+    dev = WK._host_prep(text, cuda)
+    assert np.array_equal(dev[0].cpu().numpy(), host[0])
+    assert dev[2:] == host[2:]
+    assert WS.LAUNCHES == {"sched_events": 2, "sched_planes": 2}
