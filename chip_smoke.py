@@ -31,10 +31,12 @@ Phases, one line or more each:
      lane, all 256 byte values, runs across lane starts, dead lanes) and
      on the hard blocks (each with its own lane table), exactly, K10's
      planes also against the native walker's and K8's chase of each
-     block's own wide-aux BWT against the block; then each timed with
-     CUDA events on the 25 MiB block's own inputs, beside its plain
-     version (once) and, for K8, one stable sort of the block's bytes
-     (the library call for its table's PSI part);
+     block's own wide-aux BWT against the block; K9 and K10 also on their
+     batch and tile edges (batch_edges); then each timed with CUDA events
+     on the 25 MiB block's own inputs, beside its plain version (once);
+     K8 also one chain alone (its latency floor) and the stable sort of
+     the block's bytes that builds its table's PSI part; K9's clock64()
+     split and its longest lane alone (tools/schedule_step_split.py);
   3. the v3 main path: the 25 MiB block through api.compress and
      api.decompress with -m9 -e4 -G, launch counters set to 0 just before
      and read just after (K8-K10's also between the two).  K1, K2 and K3
@@ -151,10 +153,12 @@ each output written once; for the encode kernels the max_bits rows of
 planes and probabilities they touch) over 3.35 TB/s and its operations
 (one per coded bit, a floor) over 67 TFLOP/s, the H100 SXM's device-memory
 rate and peak outside the tensor cores.  K3/K4's record buffer is scratch
-between their two kernels, not an input or output of the function, as is
-K10's per-run bit offsets.  K8's bytes are its table (8 bytes a row) and
-start rows read once and the block written once; what bounds it is the
-latency of its r dependent loads a chain, which no bytes count shows.
+between their two kernels, not an input or output of the function.  K9
+writes 16 bytes a run (rank, length, bit count and first bit S); K10
+reads 12 (rank, length and S) and writes the planes.  K8's bytes are its table (8 bytes a
+row) and start rows read once and the block written once; what bounds it
+is the latency of its r dependent loads a chain, which no bytes count
+shows: latency_floor_ms is one chain launched alone.
 """
 
 from __future__ import annotations
@@ -166,6 +170,7 @@ import struct
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -497,6 +502,56 @@ def edge_block(lanes: int = 1024, lane_bytes: int = 300,
     return b"".join(head) + body.tobytes(), np.asarray(sizes, np.int32)
 
 
+def batch_edges(seed: int = 0xBA7C) -> dict:
+    """K9's and K10's edges, name -> the lanes of a block (bytes each;
+    lay_lanes makes the block and its lane table).  K9 ranks 32 runs a
+    warp step and K10 stages 512 runs a tile: two lanes each of 1, 31,
+    32, 33, 64, 512 and 513 runs; a batch in which one char recurs three
+    times; a batch whose first run's char was last used in the batch
+    before it; all 256 byte values in one lane, its first two batches
+    drawn from all eight 32-value words of the table, then every value
+    once (ranks up to 255); a lane that starts with the byte the lane
+    before it ends with (a run cut by the lane start); empty lanes before
+    and between live ones."""
+    g = np.random.default_rng(seed)
+
+    def lane(chars) -> bytes:
+        return b"".join(bytes([c]) * int(g.integers(1, 4)) for c in chars)
+
+    def walk(n: int, alphabet: int = 10, avoid=()) -> list:
+        """n chars below ``alphabet``, each unlike the one before it, none
+        in ``avoid``."""
+        out = []
+        while len(out) < n:
+            c = int(g.integers(0, alphabet))
+            if c not in avoid and (not out or c != out[-1]):
+                out.append(c)
+        return out
+
+    cases = {f"runs_{n}": [lane(walk(n)), lane(walk(n, 40))]
+             for n in (1, 31, 32, 33, 64, 512, 513)}
+    recur = walk(40, avoid=(200,))
+    for i in (3, 9, 20):
+        recur[i] = 200
+    carry = walk(40, avoid=(77,))
+    carry[30] = carry[32] = 77  # run 32 opens the second batch
+    cases["recur_3"] = [lane(recur)]
+    cases["carry_over"] = [lane(carry)]
+    every = g.permutation(256).tolist()
+    cases["all_256"] = [lane(g.permutation(256)[:64].tolist() + every)]
+    a = walk(20)
+    cases["same_byte_at_lane_start"] = [
+        lane(a), bytes([a[-1]]) * 3 + lane(walk(20, avoid=(a[-1],)))]
+    cases["empty_lane"] = [b"", lane(walk(20)), b"", lane(walk(20))]
+    return cases
+
+
+def lay_lanes(lanes: list, L: int) -> tuple:
+    """(bytes, int32 sizes [L]): the lanes end to end, then empty ones."""
+    sizes = [len(x) for x in lanes] + [0] * (L - len(lanes))
+    return b"".join(lanes), np.asarray(sizes, np.int32)
+
+
 def check_hard_decode(text: bytes, device) -> None:
     """Phase 2 check of K3 and K4 on the hard blocks, each against its
     plain version and the input, exactly."""
@@ -538,9 +593,9 @@ def lane_planes(data: bytes, sizes):
         return planes, sizes, max_bits
     n = len(data)
     sizes = np.ascontiguousarray(sizes, dtype=np.int32)
-    pk, max_bits = WK.host_schedule_packed(
+    pk, max_bits = WK.host_schedule_packed(  # room for the longest lane
         np.frombuffer(data, np.uint8).copy(), n, native.i32p(sizes),
-        -(-n // WK.LANES))
+        max(-(-n // WK.LANES), int(sizes.max())))
     if max_bits <= 0:
         fail("the native walker refused a lane table")
     IT = WK._it_bucket(max(max_bits, WK.TI))
@@ -770,10 +825,10 @@ def schedule_stages(U, stage) -> tuple:
     from libbsc_tpu_torch.ops import wide_schedule as WS
 
     sizes_d = stage("lanes", lambda: WS.device_balanced_sizes(U, WK.LANES))
-    starts, sizes64, frid_ext, R = stage(
+    rs, starts, sizes64, frid_ext = stage(
         "stats", lambda: sched_inputs(U, sizes_d))
     ev, max_bits = stage("events", lambda: (lambda e: (e, int(e[3].max())))(
-        WS.schedule_events(U, starts, sizes64, frid_ext, R)))
+        WS.schedule_events(U, rs, starts, sizes64, frid_ext)))
     IT = WK._it_bucket(max(max_bits, WK.TI))
     packed = stage("planes", lambda: WS.schedule_planes(*ev, frid_ext, IT))
     planes = stage("transpose", lambda: packed[:, : IT // 4].t().contiguous())
@@ -968,14 +1023,15 @@ def reset_scan_launches() -> None:
 
 def sched_inputs(u, sizes) -> tuple:
     """What device_schedule_v2 hands K9 for the block ``u`` (on the card)
-    and the lane table ``sizes``: (starts, sizes, frid_ext, R)."""
+    and the lane table ``sizes``: (rs, starts, sizes, frid_ext), the
+    arguments of schedule_events after the block."""
     import torch
 
     from libbsc_tpu_torch.ops import wide_schedule as WS
 
     sizes_d = torch.as_tensor(sizes).to(device=u.device, dtype=torch.int64)
-    starts, frid_ext, R, _, _ = WS.lane_runs(u, sizes_d)
-    return starts, sizes_d, frid_ext, R
+    starts, frid_ext, _, rs, _, _ = WS.lane_runs(u, sizes_d)
+    return rs, starts, sizes_d, frid_ext
 
 
 def max_err(a: tuple, b: tuple) -> int:
@@ -990,25 +1046,21 @@ def max_err(a: tuple, b: tuple) -> int:
     return err
 
 
-def check_scan(case: str, u: np.ndarray, sizes, device) -> dict:
-    """Phase 2 check of K8, K9 and K10 on one block ``u`` (the coder's
-    input, a BWT output) with the lane table ``sizes``, each against its
-    plain version on the same inputs, exactly: K9's per-run ranks,
-    lengths and bit counts and lane totals, K10's planes (also against
-    the native walker's planes for that table), and K8's chase of the
-    block's own wide-aux BWT (also against the block).  Returns name ->
-    max_abs_err (0, or the script fails)."""
+def check_schedule(case: str, u: np.ndarray, sizes, device) -> dict:
+    """K9 and K10 on one block ``u`` (the coder's input) with the lane
+    table ``sizes`` (1024 lanes), each against its plain version on the
+    same inputs, exactly: K9's per-run ranks, lengths, bit counts and
+    first bits and lane totals, K10's planes, which must also equal the
+    native walker's for that table.  Returns name -> max_abs_err (0, or
+    the script fails), and the run count and max_bits."""
     import torch
 
-    from libbsc_tpu_torch import engine
-    from libbsc_tpu_torch.ops import bwt
     from libbsc_tpu_torch.ops import wide_kernels as WK
     from libbsc_tpu_torch.ops import wide_schedule as WS
 
-    n = len(u)
     u_d = torch.from_numpy(np.array(u, np.uint8)).to(device)
-    starts, sizes_d, frid_ext, R = sched_inputs(u_d, sizes)
-    ev = WS.schedule_events(u_d, starts, sizes_d, frid_ext, R)
+    rs, starts, sizes_d, frid_ext = sched_inputs(u_d, sizes)
+    ev = WS.schedule_events(u_d, rs, starts, sizes_d, frid_ext)
     err = {"sched_events": max_err(ev, WS.schedule_events_plain(
         u_d, starts, sizes_d, frid_ext))}
     max_bits = int(ev[3].max())
@@ -1016,12 +1068,33 @@ def check_scan(case: str, u: np.ndarray, sizes, device) -> dict:
     planes = WS.schedule_planes(*ev, frid_ext, IT)
     err["sched_planes"] = max_err((planes,), (WS.schedule_planes_plain(
         *ev, frid_ext, IT),))
+    for name, e in err.items():
+        if e:
+            fail(f"{name} differs from its plain version by {e} on the "
+                 f"{case} block")
     native, _, native_bits = lane_planes(u.tobytes(), sizes)
     if native_bits != max_bits or not np.array_equal(
             planes.t().cpu().numpy(), native):
         fail(f"K9 + K10: the {case} block's planes differ from the native "
              "walker's")
-    del planes, ev
+    return err, int(rs.shape[0]), max_bits
+
+
+def check_scan(case: str, u: np.ndarray, sizes, device) -> dict:
+    """Phase 2 check of K8, K9 and K10 on one block ``u`` (the coder's
+    input, a BWT output) with the lane table ``sizes``, each against its
+    plain version on the same inputs, exactly: K9 and K10 as
+    check_schedule holds them, and K8's chase of the block's own wide-aux
+    BWT (also against the block).  Returns name -> max_abs_err (0, or the
+    script fails)."""
+    import torch
+
+    from libbsc_tpu_torch import engine
+    from libbsc_tpu_torch.ops import bwt
+
+    n = len(u)
+    err, R, max_bits = check_schedule(case, u, sizes, device)
+    u_d = torch.from_numpy(np.array(u, np.uint8)).to(device)
     r = engine.wideaux_rate(n)
     U, primary, aux = bwt.bwt_encode_wideaux_device(u_d, r)
     packed, heads = bwt.chase_inputs(U, int(primary), aux)
@@ -1030,22 +1103,21 @@ def check_scan(case: str, u: np.ndarray, sizes, device) -> dict:
                                                           n),))
     if out.cpu().numpy().tobytes() != u.tobytes():
         fail(f"K8: the chase of the {case} block does not restore it")
-    for name, e in err.items():
-        if e:
-            fail(f"{name} differs from its plain version by {e} on the "
-                 f"{case} block")
+    if err["unbwt_chase"]:
+        fail(f"unbwt_chase differs from its plain version by "
+             f"{err['unbwt_chase']} on the {case} block")
     print(f"phase 2 check {case}: K8, K9 and K10 equal to their plain "
           f"versions, the planes to the native walker's, the chase to the "
-          f"block; {n} bytes, {R} runs, {int((sizes_d > 0).sum())} live "
-          f"lanes, {max_bits} iterations, {aux.shape[0] + 1} chains of "
+          f"block; {n} bytes, {R} runs, {int((np.asarray(sizes) > 0).sum())}"
+          f" live lanes, {max_bits} iterations, {aux.shape[0] + 1} chains of "
           f"{r}", flush=True)
     return err
 
 
 def check_scan_all(st: dict, text: bytes, device) -> dict:
-    """check_scan on the 4 MiB block (its device lane table) and on the
-    hard blocks (each with its own table; the native balancer's for the
-    high-entropy one)."""
+    """check_scan on the 4 MiB block (its device lane table), edge_block
+    and the hard blocks (each with its own table; the native balancer's
+    for the high-entropy one); check_schedule on each of batch_edges."""
     from libbsc_tpu_torch.ops import wide as W
     from libbsc_tpu_torch.ops import wide_kernels as WK
 
@@ -1053,6 +1125,14 @@ def check_scan_all(st: dict, text: bytes, device) -> dict:
     errs = [check_scan("4 MiB", st["U"], st["sizes"], device),
             check_scan("edges", np.frombuffer(data, np.uint8), sizes,
                        device)]
+    edges = batch_edges()
+    for case, lanes in edges.items():
+        data, sizes = lay_lanes(lanes, WK.LANES)
+        errs.append(check_schedule(case, np.frombuffer(data, np.uint8),
+                                   sizes, device)[0])
+    print(f"phase 2 check: K9 and K10 equal to their plain versions and the "
+          f"native walker's planes on the batch edges: {', '.join(edges)}",
+          flush=True)
     for case, (data, sizes) in hard_blocks(text).items():
         u = np.frombuffer(data, np.uint8)
         if sizes is None:
@@ -1060,54 +1140,86 @@ def check_scan_all(st: dict, text: bytes, device) -> dict:
         if sizes is None:  # the native balancer gave no table
             sizes = np.asarray(W.lane_sizes(len(u), WK.LANES), np.int32)
         errs.append(check_scan(f"hard {case}", u, sizes, device))
-    return {name: {"max_abs_err": max(e[name] for e in errs)}
+    return {name: {"max_abs_err": max(e.get(name, 0) for e in errs)}
             for name in SCAN}
 
 
-def time_scan(st: dict, device) -> list:
+def chase_latency(packed, heads, r: int, n: int, lz: np.ndarray) -> float:
+    """K8's latency floor on the card: one chain of r dependent loads
+    through the whole table, launched alone, so that nothing overlaps its
+    round trips.  The mean milliseconds over eight chains spread over the
+    block (CUDA events), each launched after a 256 MiB write has evicted
+    the 50 MB L2; each chain's bytes must equal the block's."""
+    import torch
+
+    from libbsc_tpu_torch.ops import bwt
+
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=packed.device)
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    chains = int(heads.shape[0])
+    ms = []
+    for t in range(0, chains, -(-chains // 8)):
+        m = min(r, n - t * r)
+        flush.fill_(t & 0xFF)
+        start.record()
+        out = bwt.chase(packed, heads[t:t + 1], r, m)
+        stop.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(stop))
+        if out.cpu().numpy().tobytes() != lz[t * r:t * r + m].tobytes():
+            fail(f"K8: chain {t} alone does not restore its bytes")
+    return float(np.mean(ms))
+
+
+def time_scan(st: dict, device, clock_mhz: float) -> list:
     """Phase 2 time of K8, K9 and K10 with CUDA events on the 25 MiB
     block's own inputs (the main path's: its BWT, device lane table and
     wide-aux tail), each beside its plain version (timed once: a plain
-    version takes as long as the stage did before its kernel) and, for
-    K8, the library call that computes its table's PSI part (one stable
-    sort of the block's bytes).  Each kernel's output is held against its
-    plain version's here too, and K8's against the LZP'd block."""
+    version takes as long as the stage did before its kernel).  No
+    PyTorch call computes any of the three (library_ms null).  K8's row
+    also carries the stable sort of the block's bytes that builds its
+    table's PSI part (psi_sort_ms; table_ms, the whole table) and its
+    latency floor (chase_latency).  Each kernel's output is held against
+    its plain version's here too, and K8's against the LZP'd block.  Then
+    K9's clock64() split and its longest lane launched alone
+    (tools/schedule_step_split.py on this checkout's csrc/)."""
     import torch
 
     from libbsc_tpu_torch.ops import bwt
     from libbsc_tpu_torch.ops import wide_kernels as WK
     from libbsc_tpu_torch.ops import wide_schedule as WS
+    from tools import schedule_step_split
 
     u_d = torch.from_numpy(st["U"]).to(device)
     n = len(st["U"])
-    starts, sizes_d, frid_ext, R = sched_inputs(u_d, st["sizes"])
-    L = int(starts.shape[0])
-    ev = WS.schedule_events(u_d, starts, sizes_d, frid_ext, R)
+    rs, starts, sizes_d, frid_ext = sched_inputs(u_d, st["sizes"])
+    R, L = int(rs.shape[0]), int(starts.shape[0])
+    ev = WS.schedule_events(u_d, rs, starts, sizes_d, frid_ext)
     max_bits = int(ev[3].max())
     IT = WK._it_bucket(max(max_bits, WK.TI))
-    lanes = {"longest_lane": int(st["sizes"].max()),  # what K9 scans
+    lanes = {"longest_lane": int(st["sizes"].max()),
              "longest_run": int(ev[1].max())}
     r, primary = st["r"], st["primary"]
     packed, heads = bwt.chase_inputs(u_d, primary, st["aux"])
     chains = int(heads.shape[0])
-    runs = {  # name -> (kernel, plain, library call, bytes, operations)
+    runs = {  # name -> (kernel, plain, bytes, operations)
         "sched_events": (
-            lambda: WS.schedule_events(u_d, starts, sizes_d, frid_ext, R),
+            lambda: WS.schedule_events(u_d, rs, starts, sizes_d, frid_ext),
             lambda: WS.schedule_events_plain(u_d, starts, sizes_d,
                                              frid_ext),
-            None, n + 8 * (3 * L + 1) + 12 * R + 8 * L, R),
+            n + 8 * (3 * L + 1) + 16 * R + 8 * L, R),
         "sched_planes": (
             lambda: WS.schedule_planes(*ev, frid_ext, IT),
             lambda: WS.schedule_planes_plain(*ev, frid_ext, IT),
-            None, 12 * R + 8 * (2 * L + 1) + L * IT // 4, L * IT),
+            12 * R + 8 * (2 * L + 1) + L * IT // 4, L * IT),
         "unbwt_chase": (
             lambda: bwt.chase(packed, heads, r, n),
             lambda: bwt.chase_plain(packed, heads, r, n),
-            lambda: torch.sort(u_d, stable=True),
             8 * (n + 1) + 8 * chains + n, n),
     }
     rows = []
-    for name, (kernel, plain, library, nbytes, ops) in runs.items():
+    for name, (kernel, plain, nbytes, ops) in runs.items():
         ms = cuda_ms(kernel, TIMED_LAUNCHES)
         out = kernel()
         out = out if isinstance(out, tuple) else (out,)
@@ -1121,32 +1233,45 @@ def time_scan(st: dict, device) -> list:
                 out[0].cpu().numpy().tobytes() != st["lz"].tobytes():
             fail("K8: the chase of the 25 MiB block does not restore it")
         del out
-        lib_ms = None if library is None else cuda_ms(library,
-                                                      TIMED_LAUNCHES)
         b, by = bound_ms(nbytes, ops)
         rows.append({"name": name, "route": "cuda",
                      "source": "libbsc_tpu_torch/csrc/"
                                f"{SOURCE.get(name, name)}.cu",
                      "replaces": REPLACES[name], "ms": ms,
                      "plain_ms": plain_ms, "plain_at_bytes": n,
-                     "bound_ms": b, "bound_by": by, "library_ms": lib_ms,
+                     "bound_ms": b, "bound_by": by, "library_ms": None,
                      "runs": R, "iters": max_bits, "chains": chains,
                      "rate": r, **lanes})
-        lib = ""
-        if library is not None:  # the table K8 chases, and its sort
-            rows[-1]["table_ms"] = cuda_ms(
+        extra = ""
+        if name == "unbwt_chase":
+            row = rows[-1]
+            row["psi_sort_ms"] = cuda_ms(
+                lambda: torch.sort(u_d, stable=True), TIMED_LAUNCHES)
+            row["table_ms"] = cuda_ms(
                 lambda: bwt.chase_inputs(u_d, primary, st["aux"]),
                 TIMED_LAUNCHES)
-            rows[-1]["int64_sort_ms"] = cuda_ms(
-                lambda: torch.sort(u_d.long(), stable=True), TIMED_LAUNCHES)
-            lib = (f", torch.sort(stable=True) of the block {lib_ms:.3f} ms "
-                   f"(of its int64 copy {rows[-1]['int64_sort_ms']:.3f}), "
-                   f"chase_inputs {rows[-1]['table_ms']:.3f} ms")
-        print(f"phase 2 time {name}: {ms:.3f} ms (bound {b:.4f} ms by {by})"
-              f", plain {plain_ms:.1f} ms{lib}; {n} bytes, {R} runs, "
+            row["latency_floor_ms"] = chase_latency(packed, heads, r, n,
+                                                    st["lz"])
+            extra = (f", one chain alone {row['latency_floor_ms']:.3f} ms "
+                     f"({row['latency_floor_ms'] * 1e6 / r:.0f} ns a "
+                     f"dependent load; {r} loads); its table: "
+                     f"torch.sort(stable=True) of the block "
+                     f"{row['psi_sort_ms']:.3f} ms, chase_inputs "
+                     f"{row['table_ms']:.3f} ms")
+        print(f"phase 2 time {name}: {ms:.4f} ms (bound {b:.4f} ms by {by})"
+              f", plain {plain_ms:.1f} ms{extra}; {n} bytes, {R} runs, "
               f"{max_bits} iterations, {chains} chains of {r}, longest lane "
               f"{lanes['longest_lane']} bytes, longest run "
               f"{lanes['longest_run']}", flush=True)
+    repo = os.path.dirname(os.path.abspath(__file__))
+    csrc = os.path.join(repo, "libbsc_tpu_torch", "csrc")
+    split = schedule_step_split.run(
+        [Path(csrc)], u_d, st["sizes"], clock_mhz,
+        Path(repo) / "libbsc_tpu_torch" / "_build" / "schedule_step_split")
+    row = split[csrc]
+    rows[0].update({k: row[k] for k in ("longest_lane_ms", "most_runs_ms",
+                                        "cycles_per_run_from_ms")},
+                   split=row.get("split"))
     return rows
 
 
@@ -2126,7 +2251,7 @@ def main() -> int:
     checked.update(check_stats(data, device))
     st = stages(data, features, device)
     rows = time_kernels(st, device, clock_mhz)
-    scan_rows = time_scan(st, device)
+    scan_rows = time_scan(st, device, clock_mhz)
     stats_rows = time_stats(data, device)
     lap("2")
     composed = st["archive"]

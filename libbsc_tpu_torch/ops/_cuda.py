@@ -105,9 +105,9 @@ _SIGNATURES = {
     "unbwt_chase": ("unbwt_chase", "unbwt_chase_launch",
                     [_VP, _VP, _I, _I, _L, _VP, _VP]),
     "sched_events": ("wide_schedule", "sched_events_launch",
-                     [_VP] * 4 + [_I] + [_VP] * 5),
+                     [_VP] * 5 + [_I] + [_VP] * 6),
     "sched_planes": ("wide_schedule", "sched_planes_launch",
-                     [_VP] * 5 + [_I, _L, _VP, _VP, _VP]),
+                     [_VP] * 5 + [_I, _L, _VP, _VP]),
 }
 
 

@@ -4,12 +4,13 @@ From the transformed block (on the device) and the lane table, build the
 per-lane packed 2-bit (bit | active) iteration planes that K1 and K2
 consume, the same planes as the native walker (tbsc_wide_schedule_packed):
 
-1. run boundaries on the flat block (lane starts force one), the run
-   count, the most runs in a lane and the longest run (:func:`lane_runs`,
-   torch), which decide the refusals below;
-2. K9 (:func:`schedule_events`, ``csrc/wide_schedule.cu``): for every
-   run, in global run order, its move-to-front rank, its length and its
-   bit count, and each lane's bit total;
+1. run boundaries on the flat block (lane starts force one): the run
+   starts, the run count, the most runs in a lane and the longest run
+   (:func:`lane_runs`, torch), which decide the refusals below;
+2. K9 (:func:`schedule_events`, ``csrc/wide_schedule.cu``): from the run
+   starts, for every run, in global run order, its move-to-front rank,
+   its length, its bit count and its first bit in its lane, and each
+   lane's bit total;
 3. K10 (:func:`schedule_planes`, the same source): the packed planes
    u8 [L, IT/4] from those, fields past a lane's total 0.
 
@@ -97,10 +98,10 @@ def lane_runs(data: torch.Tensor, sizes: torch.Tensor):
     """The runs of the lane table ``sizes`` (int64 [L] on data's device;
     the lanes tile the block): (lane starts int64 [L], frid_ext int64
     [L + 1]: each lane's first global run id, then the run count R; R;
-    the most runs in a lane; the longest run).  From the run starts'
-    positions, with two host syncs, not from running maxima: torch's
-    cummax over a 1-D tensor on CUDA runs in one block and took 79 ms at
-    25 MiB."""
+    the run starts int64 [R], K9's input; the most runs in a lane; the
+    longest run).  From the run starts' positions, with two host syncs,
+    not from running maxima: torch's cummax over a 1-D tensor on CUDA
+    runs in one block and took 79 ms at 25 MiB."""
     n = data.shape[0]
     starts = sizes.cumsum(0) - sizes
     rs = torch.nonzero(_run_starts(data, starts))[:, 0]
@@ -110,7 +111,7 @@ def lane_runs(data: torch.Tensor, sizes: torch.Tensor):
     ends = torch.cat([rs[1:], torch.full_like(rs[:1], n)])
     maxpl, maxrun = torch.stack([(frid_ext[1:] - frid_ext[:-1]).max(),
                                  (ends - rs).max()]).tolist()
-    return starts, frid_ext, R, maxpl, maxrun
+    return starts, frid_ext, R, rs, maxpl, maxrun
 
 
 def _grid_width(maxpl: int) -> int:
@@ -250,57 +251,61 @@ def _device(name: str, *ts: torch.Tensor) -> torch.device:
     return dev
 
 
-def schedule_events(data: torch.Tensor, starts: torch.Tensor,
-                    sizes: torch.Tensor, frid_ext: torch.Tensor, R: int):
+def schedule_events(data: torch.Tensor, rs: torch.Tensor,
+                    starts: torch.Tensor, sizes: torch.Tensor,
+                    frid_ext: torch.Tensor):
     """K9.  For the lanes [starts[k], starts[k] + sizes[k]) of ``data``
     (the lanes tile the block), whose runs have the global ids
-    ``frid_ext[k] .. frid_ext[k+1] - 1`` (``R`` runs in all; see
+    ``frid_ext[k] .. frid_ext[k+1] - 1`` and start at ``rs`` (see
     :func:`lane_runs`): each run's move-to-front rank, length and bit
-    count, int32 [R] each, and each lane's bit total, int64 [L]."""
+    count, int32 [R] each, each lane's bit total, int64 [L], and each
+    run's first bit in its lane, int32 [R] (K10's input)."""
     if data.dtype != torch.uint8 or data.dim() != 1 \
             or not data.is_contiguous():
         raise ValueError("schedule_events: data must be contiguous u8[n]")
-    _check_i64("schedule_events", starts, sizes, frid_ext)
-    dev = _device("schedule_events", data, starts, sizes, frid_ext)
+    _check_i64("schedule_events", rs, starts, sizes, frid_ext)
+    dev = _device("schedule_events", data, rs, starts, sizes, frid_ext)
     if dev.type == "cpu":
         return schedule_events_plain(data, starts, sizes, frid_ext)
-    if data.data_ptr() % 16:  # K9 reads aligned 16-byte words
-        data = data.clone()
-    L = int(starts.shape[0])
-    rank, ev_len, B = (torch.empty(R, dtype=torch.int32, device=dev)
-                       for _ in range(3))
+    R, L = int(rs.shape[0]), int(starts.shape[0])
+    rank, ev_len, B, S = (torch.empty(R, dtype=torch.int32, device=dev)
+                          for _ in range(4))
     total = torch.empty(L, dtype=torch.int64, device=dev)
     with torch.cuda.device(dev):
         rc = _cuda.launcher("sched_events")(
-            data.data_ptr(), starts.data_ptr(), sizes.data_ptr(),
-            frid_ext.data_ptr(), L, rank.data_ptr(), ev_len.data_ptr(),
-            B.data_ptr(), total.data_ptr(), _cuda.stream_handle(dev))
+            data.data_ptr(), rs.data_ptr(), starts.data_ptr(),
+            sizes.data_ptr(), frid_ext.data_ptr(), L, rank.data_ptr(),
+            ev_len.data_ptr(), B.data_ptr(), S.data_ptr(), total.data_ptr(),
+            _cuda.stream_handle(dev))
     _cuda.check("sched_events", rc)
     LAUNCHES["sched_events"] += 1
-    return rank, ev_len, B, total
+    return rank, ev_len, B, total, S
 
 
 def schedule_events_plain(data, starts, sizes, frid_ext):
     """K9's plain version: :func:`_events2` on the [L, E] grid, its valid
-    cells read out in global run order."""
+    cells read out in global run order, and each run's first bit (the
+    exclusive sum of its lane's bit counts before it)."""
     nr = _run_starts(data, starts)
     nruns = frid_ext[1:] - frid_ext[:-1]
     E = _grid_width(int(nruns.max()))
     rank, ev_len, B, total = _events2(data, starts, sizes, nr,
                                       nr.cumsum(0), frid_ext[:-1], E)
     valid = torch.arange(E, device=data.device)[None, :] < nruns[:, None]
+    S = B.cumsum(1) - B
     return (rank[valid].to(torch.int32), ev_len[valid].to(torch.int32),
-            B[valid].to(torch.int32), total)
+            B[valid].to(torch.int32), total, S[valid].to(torch.int32))
 
 
 def schedule_planes(rank: torch.Tensor, ev_len: torch.Tensor,
-                    B: torch.Tensor, total: torch.Tensor,
+                    B: torch.Tensor, total: torch.Tensor, S: torch.Tensor,
                     frid_ext: torch.Tensor, IT: int) -> torch.Tensor:
-    """K10.  Packed planes u8 [L, IT/4] from K9's per-run values: each
-    lane's events laid end to end from bit 0 in _expand2's bit order,
-    fields at or past the lane's total 0.  IT is a multiple of 16 and at
-    least every lane's total."""
-    for t in (rank, ev_len, B):
+    """K10.  Packed planes u8 [L, IT/4] from K9's per-run values (``S``:
+    each run's first bit in its lane): each lane's events laid end to
+    end from bit 0 in _expand2's bit order, fields at or past the lane's
+    total 0.  IT is a multiple of 16 below 2^31; a lane's fields past IT
+    are dropped."""
+    for t in (rank, ev_len, B, S):
         if t.dtype != torch.int32 or t.dim() != 1 \
                 or not t.is_contiguous():
             raise ValueError("schedule_planes: per-run values must be "
@@ -309,26 +314,27 @@ def schedule_planes(rank: torch.Tensor, ev_len: torch.Tensor,
     if IT % 16 or IT >= 1 << 31:
         raise ValueError(f"schedule_planes: IT {IT} is not a multiple of "
                          "16 below 2^31")
-    dev = _device("schedule_planes", rank, ev_len, B, total, frid_ext)
+    dev = _device("schedule_planes", rank, ev_len, B, total, S, frid_ext)
     if dev.type == "cpu":
-        return schedule_planes_plain(rank, ev_len, B, total, frid_ext, IT)
+        return schedule_planes_plain(rank, ev_len, B, total, S, frid_ext,
+                                     IT)
     L = int(total.shape[0])
     out = torch.empty((L, IT // 4), dtype=torch.uint8, device=dev)
-    scratch = torch.empty(rank.shape[0], dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         rc = _cuda.launcher("sched_planes")(
-            rank.data_ptr(), ev_len.data_ptr(), B.data_ptr(),
+            rank.data_ptr(), ev_len.data_ptr(), S.data_ptr(),
             total.data_ptr(), frid_ext.data_ptr(), L, IT // 16,
-            scratch.data_ptr(), out.data_ptr(), _cuda.stream_handle(dev))
+            out.data_ptr(), _cuda.stream_handle(dev))
     _cuda.check("sched_planes", rc)
     LAUNCHES["sched_planes"] += 1
     return out
 
 
-def schedule_planes_plain(rank, ev_len, B, total, frid_ext,
+def schedule_planes_plain(rank, ev_len, B, total, S, frid_ext,
                           IT: int) -> torch.Tensor:
     """K10's plain version: the per-run values back on the [L, E] grid,
-    then :func:`_expand2`."""
+    then :func:`_expand2`, which sums each run's first bit from ``B`` as
+    the JAX program does (``S`` is not read)."""
     dev = rank.device
     nruns = frid_ext[1:] - frid_ext[:-1]
     E = _grid_width(int(nruns.max()))
@@ -356,18 +362,17 @@ def device_schedule_v2(data: torch.Tensor, sizes, L: int, it_bucket=None):
     iteration count at or past the packing cap."""
     sizes_d = torch.as_tensor(sizes).to(device=data.device,
                                         dtype=torch.int64)
-    starts, frid_ext, R, maxpl, maxrun = lane_runs(data, sizes_d)
+    starts, frid_ext, _, rs, maxpl, maxrun = lane_runs(data, sizes_d)
     if maxrun >= (1 << W.RUN_EXP_CAP):
         return None, -1
     if L * _grid_width(maxpl) > _GRID_CAP:
         return None, -1
-    rank, ev_len, B, total = schedule_events(data, starts, sizes_d,
-                                             frid_ext, R)
-    max_bits = int(total.max())
+    ev = schedule_events(data, rs, starts, sizes_d, frid_ext)
+    max_bits = int(ev[3].max())
     IT = _plane_length(max_bits, it_bucket)
     if IT >= _IT_CAP:
         return None, -1
-    return schedule_planes(rank, ev_len, B, total, frid_ext, IT), max_bits
+    return schedule_planes(*ev, frid_ext, IT), max_bits
 
 
 def device_schedule(data: torch.Tensor, sizes, L: int, it_bucket=None):
@@ -389,9 +394,8 @@ def device_schedule(data: torch.Tensor, sizes, L: int, it_bucket=None):
                          "most the block's length")
     data = data[:n]
     sizes_d = torch.from_numpy(sizes_np).to(data.device)
-    starts, frid_ext, R, _, _ = lane_runs(data, sizes_d)
-    rank, ev_len, B, total = schedule_events(data, starts, sizes_d,
-                                             frid_ext, R)
-    max_bits = int(total.max())
+    starts, frid_ext, _, rs, _, _ = lane_runs(data, sizes_d)
+    ev = schedule_events(data, rs, starts, sizes_d, frid_ext)
+    max_bits = int(ev[3].max())
     IT = _plane_length(max_bits, it_bucket)
-    return schedule_planes(rank, ev_len, B, total, frid_ext, IT), max_bits
+    return schedule_planes(*ev, frid_ext, IT), max_bits

@@ -7,8 +7,9 @@ the device BWT, the sample-sort ST step on a mesh that lists cuda:0
 twice, the DC3 device BWT, the list-ranking inverse BWT (on cuda against
 its CPU run at 4 MiB, and through the API under TBSC_ENGINE=ops) and the
 lockstep range coder against the serial reference; K8 (the wide-aux
-chase) at any rate, K9 and K10 (the bit schedule) on its edge block and
-the hard blocks, their launches on the fused route, and the v1 schedule
+chase) at any rate, K9 and K10 (the bit schedule) on its edge block, the
+hard blocks and their batch and tile edges, their launches on the fused
+route, and the v1 schedule
 (TBSC_WIDE_DEV_SCHED) through them against the native walker.
 
 These tests need a CUDA device and skip without one.  tests/conftest.py
@@ -563,6 +564,25 @@ def test_scan_kernels_equal_plain_on_hard_blocks(cuda, case):
     torch.cuda.synchronize()
     assert err == dict.fromkeys(_SCAN, 0)
     assert all(_scan_launches()[k] == before[k] + 1 for k in _SCAN)
+
+
+@pytest.mark.parametrize("case", ["runs_1", "runs_31", "runs_32", "runs_33",
+                                  "runs_64", "runs_512", "runs_513",
+                                  "recur_3", "carry_over", "all_256",
+                                  "same_byte_at_lane_start", "empty_lane"])
+def test_schedule_kernels_on_batch_edges(cuda, case):
+    """K9 and K10 on their batch and tile edges (chip_smoke.batch_edges,
+    laid on 1024 lanes), against their plain versions and the native
+    walker's planes through chip_smoke.check_schedule, once each."""
+    from chip_smoke import batch_edges, check_schedule, lay_lanes
+
+    data, sizes = lay_lanes(batch_edges()[case], WK.LANES)
+    before = _scan_launches()
+    err, _, _ = check_schedule(case, np.frombuffer(data, np.uint8), sizes,
+                               cuda)
+    torch.cuda.synchronize()
+    assert err == {"sched_events": 0, "sched_planes": 0}
+    assert all(_scan_launches()[k] == before[k] + 1 for k in _SCAN[:2])
 
 
 @pytest.mark.parametrize("r", [1, 100, 256, 1000, 4096])

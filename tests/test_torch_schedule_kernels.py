@@ -2,14 +2,20 @@
 .schedule_events`` and ``schedule_planes``): their plain versions on the
 CPU against the JAX package's ``_events2_call`` and ``_expand2_call`` and
 the native walker (``tbsc_wide_schedule_packed``), exactly; numpy models
-of the CUDA kernels' algorithms (K9: a warp a lane, 32 bytes a step, the
-move-to-front table as last-use times; K10: a scan of the bit counts,
-then a word a thread found by binary search) against the plain versions;
-and ``device_schedule_v2``'s three refusals at exactly their edges.
+of the CUDA kernels' algorithms (K9: a warp a lane, 32 runs a step from
+the run starts, ranks by the batch formula from a position table, the
+table's partition, each run's first bit; K10: tiles of 512 runs in
+shared memory, each word's first run marked by the runs, its bits by
+shifts of the runs' patterns) against the plain versions; and
+``device_schedule_v2``'s three refusals at exactly their edges.
 
 Cases: a lane of zero bytes, a lane holding one run, a lane using all 256
-byte values, runs crossing lane starts, dead lanes (``edge_block``), and
-text, random bytes and runs under balanced, equal and skewed tables."""
+byte values, runs crossing lane starts, dead lanes (``edge_block``),
+text, random bytes and runs under balanced, equal and skewed tables, and
+the kernels' batch and tile edges (``batch_edges``: lanes of 1, 31, 32,
+33, 64, 512 and 513 runs, a char recurring three times in a batch, a
+batch opening with a char last used in the batch before, all 256 values,
+a lane opening with the byte the lane before ends with, empty lanes)."""
 
 from bisect import bisect_right
 
@@ -19,7 +25,7 @@ import torch
 
 import jax.numpy as jnp
 
-from chip_smoke import edge_block
+from chip_smoke import batch_edges, edge_block, lay_lanes
 from libbsc_tpu.ops import wide_schedule as jsched
 from libbsc_tpu_torch import engine as pengine
 from libbsc_tpu_torch import native as pnative
@@ -54,15 +60,19 @@ def _cases() -> dict:
 
 
 CASES = _cases()
+EDGES = {name: (np.frombuffer(data, np.uint8).copy(), sizes)
+         for name, (data, sizes) in
+         ((name, lay_lanes(lanes, L))
+          for name, lanes in batch_edges().items())}
 
 
 def _inputs(data: np.ndarray, sizes: np.ndarray):
-    """(data, starts, sizes, frid_ext, R) as device_schedule_v2 hands
+    """(data, rs, starts, sizes, frid_ext) as device_schedule_v2 hands
     them to K9, and the grid width E of the JAX programs."""
     d = torch.from_numpy(data)
     sizes_d = torch.from_numpy(sizes.astype(np.int64))
-    starts, frid_ext, R, maxpl, _ = psched.lane_runs(d, sizes_d)
-    return d, starts, sizes_d, frid_ext, R, psched._grid_width(maxpl)
+    starts, frid_ext, _, rs, maxpl, _ = psched.lane_runs(d, sizes_d)
+    return d, rs, starts, sizes_d, frid_ext, psched._grid_width(maxpl)
 
 
 @pytest.fixture(scope="module")
@@ -72,7 +82,8 @@ def jax_grids():
     out = {}
     for name, (data, sizes) in CASES.items():
         n = len(data)
-        d, starts, _, frid_ext, R, E = _inputs(data, sizes)
+        d, rs, starts, _, frid_ext, E = _inputs(data, sizes)
+        R = int(rs.shape[0])
         s32 = jnp.asarray(sizes)
         rank, ev_len, B, total, mb = jsched._events2_call(
             n, L, psched._bucket(max(R, 1024), 1024), E)(
@@ -99,22 +110,25 @@ def _native_planes(data: np.ndarray, sizes: np.ndarray):
 @pytest.mark.parametrize("name", list(CASES))
 def test_events_plain_equals_jax_grid(name, jax_grids):
     data, sizes = CASES[name]
-    d, starts, sizes_d, frid_ext, R, E = _inputs(data, sizes)
-    ev = psched.schedule_events(d, starts, sizes_d, frid_ext, R)
+    d, rs, starts, sizes_d, frid_ext, E = _inputs(data, sizes)
+    ev = psched.schedule_events(d, rs, starts, sizes_d, frid_ext)
     rank, ev_len, B, total, _ = jax_grids[name]
     nruns = np.diff(frid_ext.numpy())
     valid = np.arange(rank.shape[1])[None, :] < nruns[:, None]
     for ours, theirs in zip(ev[:3], (rank, ev_len, B)):
-        assert ours.dtype == torch.int32 and ours.shape == (R,)
+        assert ours.dtype == torch.int32 and ours.shape == rs.shape
         assert np.array_equal(ours.numpy(), theirs[valid])
     assert np.array_equal(ev[3].numpy(), total)
+    S = np.cumsum(B, 1) - B  # each run's first bit in its lane
+    assert ev[4].dtype == torch.int32
+    assert np.array_equal(ev[4].numpy(), S[valid])
 
 
 @pytest.mark.parametrize("name", list(CASES))
 def test_planes_plain_equals_jax_and_native(name, jax_grids):
     data, sizes = CASES[name]
-    d, starts, sizes_d, frid_ext, R, E = _inputs(data, sizes)
-    ev = psched.schedule_events(d, starts, sizes_d, frid_ext, R)
+    d, rs, starts, sizes_d, frid_ext, E = _inputs(data, sizes)
+    ev = psched.schedule_events(d, rs, starts, sizes_d, frid_ext)
     max_bits = int(ev[3].max())
     IT = psched._bucket(max(max_bits, 256), 256)
     planes = psched.schedule_planes(*ev, frid_ext, IT).numpy()
@@ -144,6 +158,10 @@ def _bitlen(x: int) -> int:
     return int(x).bit_length()
 
 
+def _popc(x: int) -> int:
+    return (int(x) & 0xFFFFFFFF).bit_count()
+
+
 def _event_bits(rank: int, ln: int) -> int:
     b = 2
     if rank > 0:
@@ -155,44 +173,123 @@ def _event_bits(rank: int, ln: int) -> int:
     return b
 
 
-def _events_model(data, starts, sizes, frid_ext):
-    """K9: a lane's aligned 16-byte words 512 bytes at a time (bytes
-    outside the lane masked), run starts where a byte differs from the
-    one before it in the lane; a run's rank is the number of byte values
-    used more recently (last-use times, -c - 1 at first)."""
+def _ballot(pred) -> int:
+    return sum(1 << j for j, x in enumerate(pred) if x)
+
+
+def _batch_ranks(c: list, valid: list, pos: np.ndarray) -> list:
+    """K9's ranks of one batch, thread j holding run j with char c[j]
+    (256 + j past the lane), from the start-of-batch table ``pos``: the
+    match masks (each run's previous and next use of its char), "next
+    use >= j" compared bit by bit over six ballots, and the eight ballots
+    of the new chars' positions."""
+    lanes = range(32)
+    below = [(1 << j) - 1 for j in lanes]
+    same = [_ballot(c[i] == c[j] for i in lanes) for j in lanes]
+    last = [_bitlen(same[j] & below[j]) - 1 for j in lanes]  # -1: not in W
+    nxt = []
+    for j in lanes:
+        after = same[j] & ~((2 << j) - 1) & 0xFFFFFFFF
+        nxt.append((after & -after).bit_length() - 1 if after else 32)
+    ballots = [_ballot((x >> bt) & 1 for x in nxt) for bt in range(6)]
+    fresh = []
+    for j in lanes:
+        gt, eq = 0, 0xFFFFFFFF
+        for bt in range(5, -1, -1):
+            ones = ballots[bt]
+            if (j >> bt) & 1:
+                eq &= ones
+            else:
+                gt |= eq & ones
+                eq &= ~ones
+        fresh.append(below[j] & (gt | eq))
+    pc = [int(pos[c[j]]) if valid[j] else 0 for j in lanes]
+    first = sum(1 << j for j in lanes if valid[j] and last[j] < 0)
+    cand = [first & below[j] for j in lanes]
+    less = [0] * 32
+    for bt in range(7, -1, -1):
+        ones = sum(1 << j for j in lanes if (pc[j] >> bt) & 1)
+        for j in lanes:
+            if (pc[j] >> bt) & 1:
+                less[j] += _popc(cand[j] & ~ones)
+            cand[j] &= ones if (pc[j] >> bt) & 1 else ~ones
+    rank = [_popc(fresh[j] & ~((2 << last[j]) - 1)) if last[j] >= 0
+            else _popc(fresh[j]) + pc[j] - less[j] for j in lanes]
+    lasts = _ballot(valid[j] and nxt[j] == 32 for j in lanes)
+    return rank, lasts, pc
+
+
+def _partition(c: list, pc: list, lasts: int, pos: np.ndarray,
+               order: np.ndarray) -> None:
+    """K9's table update after a batch, in place: the batch's chars
+    (``lasts``: the runs of their last use) to the front, the last used
+    first; thread t's kept entries of order (ranks 8t .. 8t + 7) after
+    them in order.  The ranks the batch takes (its chars' positions ``pc``)
+    below 8t and among 8t .. 8t + 7 come from comparing 8t bit by bit
+    with the ballots of the positions' bits."""
+    pcb = [_ballot((x >> bt) & 1 for x in pc) for bt in range(8)]
+    old = order.copy()
+    for t in range(32):
+        lt, hit = 0, lasts
+        for bt in range(7, 2, -1):
+            if (t >> (bt - 3)) & 1:
+                lt |= hit & ~pcb[bt]
+                hit &= pcb[bt]
+            else:
+                hit &= ~pcb[bt]
+        gone = 0
+        for i in range(8):
+            low = 0xFFFFFFFF
+            for bt in range(3):
+                low &= pcb[bt] if (i >> bt) & 1 else ~pcb[bt]
+            gone |= int(hit & low != 0) << i
+        to = _popc(lasts) + 8 * t - _popc(lt)
+        for i in range(8):
+            if not (gone >> i) & 1:
+                v = old[8 * t + i]
+                order[to], pos[v] = v, to
+                to += 1
+    for j in range(32):
+        if (lasts >> j) & 1:
+            r = _popc(lasts & ~((2 << j) - 1))
+            order[r], pos[c[j]] = c[j], r
+
+
+def _events_model(data, rs, starts, sizes, frid_ext):
+    """K9: a warp a lane, 32 runs a step from the run starts ``rs``: each
+    run's char at its start and its length to the next start (the lane's
+    end for its last run), ranks by the batch formula from the
+    start-of-batch position table, then the table's partition; each run's
+    bits and first bit S (a prefix over the batch, carried across
+    batches)."""
     R = int(frid_ext[-1])
-    rank = np.zeros(R, np.int64)
-    ln = np.zeros(R, np.int64)
-    bits = np.zeros(R, np.int64)
+    rank, ln, bits, S = (np.zeros(R, np.int64) for _ in range(4))
     total = np.zeros(len(starts), np.int64)
-    padded = np.concatenate([data, np.zeros(16, np.uint8)])
-    for k, (lo, size) in enumerate(zip(starts.tolist(), sizes.tolist())):
-        hi = lo + size
-        ts = -np.arange(256) - 1
-        clock, q, pstart, prank, before = 0, int(frid_ext[k]), -1, 0, -1
-
-        def close(rk, length):
-            nonlocal q
-            rank[q], ln[q] = rk, length
-            bits[q] = _event_bits(rk, length)
-            total[k] += bits[q]
-            q += 1
-
-        for span in range((lo >> 4) * 16, -(-hi // 16) * 16, 512):
-            for p in range(span, min(span + 512, -(-hi // 16) * 16)):
-                c = int(padded[p])
-                if lo <= p < hi and (p == lo or c != before):
-                    if pstart >= 0:
-                        close(prank, p - pstart)
-                    prank = int((ts > ts[c]).sum())
-                    ts[c] = clock
-                    clock += 1
-                    pstart = p
-                before = c
-        if pstart >= 0:
-            close(prank, hi - pstart)
-        assert q == int(frid_ext[k + 1])
-    return rank, ln, bits, total
+    for k in range(len(starts)):
+        g0, nr = int(frid_ext[k]), int(frid_ext[k + 1] - frid_ext[k])
+        end = int(starts[k] + sizes[k])
+        pos, order = np.arange(256), np.arange(256)
+        carry = 0
+        for b0 in range(0, nr, 32):
+            valid = [b0 + j < nr for j in range(32)]
+            p = [int(rs[g0 + b0 + j]) if b0 + j < nr else end
+                 for j in range(33)]
+            c = [int(data[p[j]]) if valid[j] else 256 + j
+                 for j in range(32)]
+            rk, lasts, pc = _batch_ranks(c, valid, pos)
+            _partition(c, pc, lasts, pos, order)
+            b = [_event_bits(rk[j], p[j + 1] - p[j]) if valid[j] else 0
+                 for j in range(32)]
+            ones = [_ballot((x >> bt) & 1 for x in b) for bt in range(7)]
+            for j in range(32):
+                if valid[j]:
+                    g = g0 + b0 + j
+                    rank[g], ln[g], bits[g] = rk[j], p[j + 1] - p[j], b[j]
+                    S[g] = carry + sum(_popc(m & ((1 << j) - 1)) << bt
+                                       for bt, m in enumerate(ones))
+            carry += sum(_popc(m) << bt for bt, m in enumerate(ones))
+        total[k] = carry
+    return rank, ln, bits, total, S
 
 
 def _event_bit(rk: int, rn: int, j: int) -> int:
@@ -214,63 +311,176 @@ def _event_bit(rk: int, rn: int, j: int) -> int:
     return (rn >> (ubrs - 2 - (j - uoff - 1 - ulen))) & 1
 
 
-def _planes_model(rank, ln, bits, total, frid_ext, IT: int,
-                  threads: int = 256):
-    """K10: each lane's exclusive scan of the bit counts, then thread t
-    owns words t, t + threads, ...: a binary search (from its last run)
-    for the run holding the word's first field, then the word's 16
-    fields, 0 at or past the lane's total."""
+def _pattern(rk: int, rn: int) -> tuple:
+    """K10's stage_run: (lo u64, hi, B), bit j = the event's bit j: the
+    rank part (at most 15 bits) below the run part (at most 61)."""
+    def rev(x: int, nb: int) -> int:
+        return int(f"{x & ((1 << nb) - 1):0{nb}b}"[::-1], 2)
+
+    rp, rl = int(rk > 0), 1
+    if rk > 0:
+        brs = _bitlen(rk)
+        rlen = brs - 1 + (brs < pwide.RANK_EXP_CAP)
+        rp |= ((1 << (brs - 1)) - 1) << 1
+        if brs > 1:
+            rp |= rev(rk, brs - 1) << (1 + rlen)
+        rl += rlen + brs - 1
+    up, ul = int(rn != 1), 1
+    if rn != 1:
+        ubrs = _bitlen(rn)
+        ulen = ubrs - 1 + (ubrs < pwide.RUN_EXP_CAP)
+        up |= ((1 << (ubrs - 1)) - 1) << 1
+        if ubrs > 1:
+            up |= rev(rn, ubrs - 1) << (1 + ulen)
+        ul += ulen + ubrs - 1
+    assert rl <= 15 and up < 1 << 61
+    lo = (rp | (up << rl)) & (2 ** 64 - 1)
+    return lo, up >> (64 - rl), rl + ul
+
+
+def _pattern_bits(lo: int, hi: int, j: int) -> int:
+    """K10's pattern_bits: bits j .. j + 15 of the pattern (and more)."""
+    if j >= 64:
+        return hi >> (j - 64)
+    v = lo >> j
+    if j > 48:
+        v |= (hi << (64 - j)) & (2 ** 64 - 1)
+    return v & 0xFFFFFFFF
+
+
+def _spread(x: int) -> int:
+    x = (x | (x << 8)) & 0x00FF00FF
+    x = (x | (x << 4)) & 0x0F0F0F0F
+    x = (x | (x << 2)) & 0x33333333
+    return (x | (x << 1)) & 0x55555555
+
+
+def _planes_model(rank, ln, S, total, frid_ext, IT: int, tile: int = 512,
+                  halo: int = 8):
+    """K10: a lane's runs in tiles of ``tile`` (and ``halo`` more staged):
+    each run's pattern, S from K9; each of the tile's own runs marks
+    itself as the first run of the words whose first field it holds (the
+    tile's words end where the next tile's first run starts, or at the
+    lane's total); each word takes its 16 bits
+    from its first run and the next ones by shifts and masks, spread to
+    the fields' low bits with the active bits set; words at or past the
+    lane's total 0."""
     words = IT // 16
     out = np.zeros((len(total), words), np.uint32)
     for k in range(len(total)):
-        e0, e1 = int(frid_ext[k]), int(frid_ext[k + 1])
-        S = (np.cumsum(bits[e0:e1]) - bits[e0:e1]).tolist()
-        for t in range(threads):
-            e = 0
-            for w in range(t, words, threads):
+        e0, ne = int(frid_ext[k]), int(frid_ext[k + 1] - frid_ext[k])
+        tot = int(total[k])
+        for a in range(0, ne, tile):
+            nt, ns = min(tile, ne - a), min(tile + halo, ne - a)
+            st = [_pattern(int(rank[e0 + a + i]), int(ln[e0 + a + i]))
+                  for i in range(ns)]
+            start = [int(S[e0 + a + i]) for i in range(ns)]
+            end = [start[i] + st[i][2] for i in range(ns)]
+            w_lo = (start[0] + 15) >> 4
+            w_hi = min(words, ((int(S[e0 + a + nt]) if a + nt < ne else tot)
+                               + 15) >> 4)
+            first = {}
+            for i in range(nt):
+                w = (start[i] + 15) >> 4
+                while w < w_hi and 16 * w < end[i]:
+                    first[w - w_lo] = i
+                    w += 1
+            assert sorted(first) == list(range(w_hi - w_lo))
+            for w in range(w_lo, w_hi):
                 it0 = 16 * w
-                if it0 >= total[k]:
-                    continue
-                e = e + bisect_right(S[e:], it0) - 1
-                word, ev = 0, e
-                for f in range(16):
-                    it = it0 + f
-                    if it >= total[k]:
-                        break
-                    if it - S[ev] >= bits[e0 + ev]:
-                        ev += 1
-                    word |= (_event_bit(int(rank[e0 + ev]), int(ln[e0 + ev]),
-                                        it - S[ev]) | 2) << (2 * f)
-                e = ev
-                out[k, w] = word
+                nf = min(16, tot - it0)
+                i = first[w - w_lo]
+                j, x, f = it0 - start[i], 0, 0
+                while f < nf:
+                    assert i < ns
+                    take = min(end[i] - start[i] - j, nf - f)
+                    x |= (_pattern_bits(st[i][0], st[i][1], j)
+                          & ((1 << take) - 1)) << f
+                    f += take
+                    i, j = i + 1, 0
+                out[k, w] = _spread(x) | (0xAAAAAAAA & ((1 << 2 * nf) - 1))
     return out.astype("<u4").view(np.uint8).reshape(len(total), IT // 4)
 
 
-@pytest.mark.parametrize("name", list(CASES))
-def test_kernel_models_equal_plain(name):
-    data, sizes = CASES[name]
-    d, starts, sizes_d, frid_ext, R, E = _inputs(data, sizes)
-    ev = psched.schedule_events(d, starts, sizes_d, frid_ext, R)
-    model = _events_model(data, starts.numpy(), sizes_d.numpy(),
+def _check_models(data: np.ndarray, sizes: np.ndarray) -> None:
+    """Both models against the plain versions on one block."""
+    d, rs, starts, sizes_d, frid_ext, E = _inputs(data, sizes)
+    ev = psched.schedule_events(d, rs, starts, sizes_d, frid_ext)
+    model = _events_model(data, rs.numpy(), starts.numpy(), sizes_d.numpy(),
                           frid_ext.numpy())
     for ours, theirs in zip(ev, model):
         assert np.array_equal(ours.numpy(), theirs)
     IT = psched._bucket(max(int(ev[3].max()), 256), 256)
     planes = psched.schedule_planes(*ev, frid_ext, IT)
+    rank, ln, _, total, S = (x.numpy() for x in ev)
     assert np.array_equal(planes.numpy(), _planes_model(
-        *(x.numpy() for x in ev), frid_ext.numpy(), IT))
+        rank, ln, S, total, frid_ext.numpy(), IT))
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_kernel_models_equal_plain(name):
+    _check_models(*CASES[name])
+
+
+@pytest.mark.parametrize("name", list(EDGES))
+def test_batch_edges_models_equal_plain_and_native(name):
+    """K9's batch edges and K10's tile edges (chip_smoke.batch_edges) on
+    16 lanes: both kernels' models against the plain versions, and the
+    plain planes against the native walker's."""
+    data, sizes = EDGES[name]
+    _check_models(data, sizes)
+    d, rs, starts, sizes_d, frid_ext, _ = _inputs(data, sizes)
+    ev = psched.schedule_events(d, rs, starts, sizes_d, frid_ext)
+    max_bits = int(ev[3].max())
+    IT = psched._bucket(max(max_bits, 256), 256)
+    planes = psched.schedule_planes(*ev, frid_ext, IT).numpy()
+    pk, mb = _native_planes(data, sizes)
+    assert mb == max_bits
+    m = min(planes.shape[1], pk.shape[1])
+    assert np.array_equal(planes[:, :m], pk[:, :m])
+    assert not planes[:, m:].any() and not pk[:, m:].any()
+
+
+def test_batch_edges_hold_their_edges():
+    runs = {name: np.diff(_inputs(*EDGES[name])[4].numpy())
+            for name in EDGES}
+    for n in (1, 31, 32, 33, 64, 512, 513):
+        assert runs[f"runs_{n}"][:2].tolist() == [n, n]
+    assert runs["empty_lane"][:4].tolist() == [0, 20, 0, 20]
+    data, sizes = EDGES["same_byte_at_lane_start"]
+    assert data[sizes[0] - 1] == data[sizes[0]]
+    assert runs["same_byte_at_lane_start"][1] == 21
+    lane = EDGES["all_256"][0][:EDGES["all_256"][1][0]]
+    assert len(np.unique(lane)) == 256
+
+
+@pytest.mark.parametrize("rank", [0, 1, 2, 3, 127, 128, 255])
+def test_event_pattern_model_equals_event_bits(rank):
+    """K10's pattern (a u64 and a u32, bits past 64 for runs of 2^25 or
+    more, which v1 takes) against _expand2's bit order, bit by bit."""
+    for ln in (1, 2, 3, 255, 256, (1 << 24) - 1, 1 << 24, (1 << 25) + 7,
+               (1 << 31) - 1):
+        lo, hi, B = _pattern(rank, ln)
+        assert B == _event_bits(rank, ln) <= 76
+        for j in range(B):
+            assert (_pattern_bits(lo, hi, j) & 1) == _event_bit(rank, ln, j)
+        assert _pattern_bits(lo, hi, B - 1) >> 1 == 0
 
 
 def test_wrappers_check_their_arguments():
     data, sizes = CASES["text_balanced"]
-    d, starts, sizes_d, frid_ext, R, E = _inputs(data, sizes)
+    d, rs, starts, sizes_d, frid_ext, E = _inputs(data, sizes)
     with pytest.raises(ValueError):
-        psched.schedule_events(d.long(), starts, sizes_d, frid_ext, R)
-    ev = psched.schedule_events(d, starts, sizes_d, frid_ext, R)
+        psched.schedule_events(d.long(), rs, starts, sizes_d, frid_ext)
+    with pytest.raises(ValueError):  # the run starts as int32
+        psched.schedule_events(d, rs.int(), starts, sizes_d, frid_ext)
+    ev = psched.schedule_events(d, rs, starts, sizes_d, frid_ext)
     with pytest.raises(ValueError):
         psched.schedule_planes(*ev, frid_ext, 264)  # not a multiple of 16
     with pytest.raises(ValueError):
         psched.schedule_planes(ev[0].long(), *ev[1:], frid_ext, 256 * 64)
+    with pytest.raises(ValueError):  # S as int64
+        psched.schedule_planes(*ev[:4], ev[4].long(), frid_ext, 256 * 64)
     assert psched.LAUNCHES == {"sched_events": 0, "sched_planes": 0}
 
 
