@@ -25,8 +25,9 @@ Phases, one line or more each:
      (bsc's default -b25; kernels only, after a warm-up), its payload or
      decoded block again held against the native codec or the input,
      with its measured cycles per iteration (ms x max SM clock /
-     iterations); K8 (the wide-aux chase), K9 and K10 (the bit schedule's
-     events and planes) against their plain versions on the 4 MiB block
+     iterations); K8 (the wide-aux inverse BWT: its table kernel and its
+     chase), K9 and K10 (the bit schedule's events and planes) against
+     their plain versions on the 4 MiB block
      (its device lane table), on edge_block (an empty lane, a one-run
      lane, all 256 byte values, runs across lane starts, dead lanes) and
      on the hard blocks (each with its own lane table), exactly, K10's
@@ -34,8 +35,11 @@ Phases, one line or more each:
      block's own wide-aux BWT against the block; K9 and K10 also on their
      batch and tile edges (batch_edges); then each timed with CUDA events
      on the 25 MiB block's own inputs, beside its plain version (once);
-     K8 also one chain alone (its latency floor) and the stable sort of
-     the block's bytes that builds its table's PSI part; K9's clock64()
+     K8 also one chain alone (its latency floor), the stable sort of the
+     block's bytes and its whole table build; K8's step 0 (the torch ops
+     of the int64 table up to f242faf, each alone, and the two ways to the
+     bucket ends) and its other designs, each table and chase timed and
+     each chase's latency floor (tools/chase_variants.py); K9's clock64()
      split and its longest lane alone (tools/schedule_step_split.py);
   3. the v3 main path: the 25 MiB block through api.compress and
      api.decompress with -m9 -e4 -G, launch counters set to 0 just before
@@ -46,8 +50,8 @@ Phases, one line or more each:
      and the native host decode must restore the input.  Then each stage
      of the fused route is timed once, stage by stage, for the breakdown
      (the schedule split into lanes, stats, events (K9), planes (K10) and
-     transpose; the inverse BWT into psi, the chase's table, and chase,
-     K8); the archive those stages compose must equal the main path's, so
+     transpose; the inverse BWT into psi, K8's table: the sort, the
+     bucket ends and the table kernel, and chase, K8's chase); the archive those stages compose must equal the main path's, so
      the breakdown cannot drift from the code it times;
   4. the v2 main path: the same with wide_kernels.RANS = False.  K5 and K4
      must have launched and K1, K2 and K3 not (K8-K10 as in phase 3);
@@ -155,10 +159,13 @@ planes and probabilities they touch) over 3.35 TB/s and its operations
 rate and peak outside the tensor cores.  K3/K4's record buffer is scratch
 between their two kernels, not an input or output of the function.  K9
 writes 16 bytes a run (rank, length, bit count and first bit S); K10
-reads 12 (rank, length and S) and writes the planes.  K8's bytes are its table (8 bytes a
-row) and start rows read once and the block written once; what bounds it
-is the latency of its r dependent loads a chain, which no bytes count
-shows: latency_floor_ms is one chain launched alone.
+reads 12 (rank, length and S) and writes the planes.  K8's table kernel
+reads the sort's indices (8 bytes a row) and the bucket ends and writes
+the two-step table (8 bytes a row); its chase reads the rows its chains
+load (8 bytes each, one for two steps), the ends and the start rows once
+and writes the block (operations: 8 search steps a row searched); what
+bounds the chase is the latency of its r / 2 dependent loads a chain,
+which no bytes count shows: latency_floor_ms is one chain launched alone.
 """
 
 from __future__ import annotations
@@ -194,17 +201,22 @@ REPLACES = {  # kernel -> the Pallas kernel it replaces
     "byte_hist": "libbsc_tpu/ops/pallas_kernels.py:64",
     "adler_partials": "libbsc_tpu/ops/pallas_kernels.py:100",
     # K8-K10 replace XLA programs of the JAX package, not Pallas kernels
+    "unbwt_table": "libbsc_tpu/ops/bwt.py:870",
     "unbwt_chase": "libbsc_tpu/ops/bwt.py:870",
     "sched_events": "libbsc_tpu/ops/wide_schedule.py:262",
     "sched_planes": "libbsc_tpu/ops/wide_schedule.py:371",
 }
 V3 = ("wide_model", "wide_rans", "wide_decode")
 V2 = ("wide_rc_encode", "wide_decode_v2")
-SCAN = ("unbwt_chase", "sched_events", "sched_planes")  # K8, K9, K10
+# K8 (its table and its chase), K9, K10
+SCAN = ("unbwt_table", "unbwt_chase", "sched_events", "sched_planes")
 # the launches of K8-K10 in a -m9 -e4 -G encode and decode
-SCAN_ENCODE = {"unbwt_chase": 0, "sched_events": 1, "sched_planes": 1}
-SCAN_DECODE = {"unbwt_chase": 1, "sched_events": 0, "sched_planes": 0}
+SCAN_ENCODE = {"unbwt_table": 0, "unbwt_chase": 0, "sched_events": 1,
+               "sched_planes": 1}
+SCAN_DECODE = {"unbwt_table": 1, "unbwt_chase": 1, "sched_events": 0,
+               "sched_planes": 0}
 SOURCE = {"wide_decode_v2": "wide_decode",  # K4 is K3's template twin
+          "unbwt_table": "unbwt_chase",
           "sched_events": "wide_schedule", "sched_planes": "wide_schedule"}
 
 
@@ -877,11 +889,11 @@ def breakdown(data: bytes, features: int, archive: bytes, device) -> dict:
     parsed = stage("parse", lambda: WK._dec_parse(payload))
     args = stage("prep", lambda: WK._dec_args(parsed, device))
     U2 = stage("k3", lambda: WK.decode_lanes(*args))
-    packed, heads = stage("psi", lambda: bwt.chase_inputs(
+    pairs, ends, heads = stage("psi", lambda: bwt.chase_inputs(
         U2, int(primary), aux))
-    T = stage("chase", lambda: bwt.chase(packed, heads, r, len(lz)))
+    T = stage("chase", lambda: bwt.chase(pairs, ends, heads, r, len(lz)))
     ms["unbwt"] = ms["psi"] + ms["chase"]
-    del packed, heads
+    del pairs, ends, heads
     T_h = stage("d2h", lambda: T.cpu().numpy())
     out = T_h
     if lzp:
@@ -1097,17 +1109,23 @@ def check_scan(case: str, u: np.ndarray, sizes, device) -> dict:
     u_d = torch.from_numpy(np.array(u, np.uint8)).to(device)
     r = engine.wideaux_rate(n)
     U, primary, aux = bwt.bwt_encode_wideaux_device(u_d, r)
-    packed, heads = bwt.chase_inputs(U, int(primary), aux)
-    out = bwt.chase(packed, heads, r, n)
-    err["unbwt_chase"] = max_err((out,), (bwt.chase_plain(packed, heads, r,
-                                                          n),))
+    pairs, ends, heads = bwt.chase_inputs(U, int(primary), aux)
+    u_sorted = torch.sort(U, stable=True)[1]
+    err["unbwt_table"] = max_err((pairs,), (bwt.pair_table_plain(
+        u_sorted, int(primary), ends),))
+    del u_sorted
+    out = bwt.chase(pairs, ends, heads, r, n)
+    err["unbwt_chase"] = max_err((out,), (bwt.chase_plain(
+        pairs, ends, heads, r, n),))
     if out.cpu().numpy().tobytes() != u.tobytes():
         fail(f"K8: the chase of the {case} block does not restore it")
-    if err["unbwt_chase"]:
-        fail(f"unbwt_chase differs from its plain version by "
-             f"{err['unbwt_chase']} on the {case} block")
-    print(f"phase 2 check {case}: K8, K9 and K10 equal to their plain "
-          f"versions, the planes to the native walker's, the chase to the "
+    for name in ("unbwt_table", "unbwt_chase"):
+        if err[name]:
+            fail(f"{name} differs from its plain version by {err[name]} on "
+                 f"the {case} block")
+    print(f"phase 2 check {case}: K8 (table and chase), K9 and K10 equal to "
+          f"their plain versions, the planes to the native walker's, the "
+          f"chase to the "
           f"block; {n} bytes, {R} runs, {int((np.asarray(sizes) > 0).sum())}"
           f" live lanes, {max_bits} iterations, {aux.shape[0] + 1} chains of "
           f"{r}", flush=True)
@@ -1144,17 +1162,16 @@ def check_scan_all(st: dict, text: bytes, device) -> dict:
             for name in SCAN}
 
 
-def chase_latency(packed, heads, r: int, n: int, lz: np.ndarray) -> float:
-    """K8's latency floor on the card: one chain of r dependent loads
-    through the whole table, launched alone, so that nothing overlaps its
-    round trips.  The mean milliseconds over eight chains spread over the
-    block (CUDA events), each launched after a 256 MiB write has evicted
-    the 50 MB L2; each chain's bytes must equal the block's."""
+def chase_latency(chase, heads, r: int, n: int, lz: np.ndarray) -> float:
+    """K8's latency floor on the card: one chain of dependent loads
+    through the whole table, launched alone (``chase(heads[t:t + 1], m)``
+    chases chain t's m bytes), so that nothing overlaps its round trips.
+    The mean milliseconds over eight chains spread over the block (CUDA
+    events), each launched after a 256 MiB write has evicted the 50 MB
+    L2; each chain's bytes must equal the block's."""
     import torch
 
-    from libbsc_tpu_torch.ops import bwt
-
-    flush = torch.empty(256 << 20, dtype=torch.uint8, device=packed.device)
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=heads.device)
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     chains = int(heads.shape[0])
@@ -1163,7 +1180,7 @@ def chase_latency(packed, heads, r: int, n: int, lz: np.ndarray) -> float:
         m = min(r, n - t * r)
         flush.fill_(t & 0xFF)
         start.record()
-        out = bwt.chase(packed, heads[t:t + 1], r, m)
+        out = chase(heads[t:t + 1], m)
         stop.record()
         torch.cuda.synchronize()
         ms.append(start.elapsed_time(stop))
@@ -1173,23 +1190,26 @@ def chase_latency(packed, heads, r: int, n: int, lz: np.ndarray) -> float:
 
 
 def time_scan(st: dict, device, clock_mhz: float) -> list:
-    """Phase 2 time of K8, K9 and K10 with CUDA events on the 25 MiB
-    block's own inputs (the main path's: its BWT, device lane table and
-    wide-aux tail), each beside its plain version (timed once: a plain
-    version takes as long as the stage did before its kernel).  No
-    PyTorch call computes any of the three (library_ms null).  K8's row
-    also carries the stable sort of the block's bytes that builds its
-    table's PSI part (psi_sort_ms; table_ms, the whole table) and its
-    latency floor (chase_latency).  Each kernel's output is held against
-    its plain version's here too, and K8's against the LZP'd block.  Then
-    K9's clock64() split and its longest lane launched alone
-    (tools/schedule_step_split.py on this checkout's csrc/)."""
+    """Phase 2 time of K8 (its table and its chase), K9 and K10 with CUDA
+    events on the 25 MiB block's own inputs (the main path's: its BWT,
+    device lane table and wide-aux tail), each beside its plain version
+    (timed once: a plain version takes as long as the stage did before
+    its kernel).  No PyTorch call computes any of them (library_ms null).
+    The chase's row also carries its whole table build (table_ms:
+    ops/bwt.chase_inputs, the stable sort of the block's bytes, the bucket
+    ends and the table kernel; sort_ms, the sort alone) and its latency
+    floor (chase_latency).  Each kernel's output is held against
+    its plain version's here too, and the chase's against the LZP'd
+    block.  Then K8's step 0 and its other designs, each with its latency
+    floor (tools/chase_variants.py), and K9's clock64() split and its
+    longest lane launched alone (tools/schedule_step_split.py), both on
+    this checkout's csrc/."""
     import torch
 
     from libbsc_tpu_torch.ops import bwt
     from libbsc_tpu_torch.ops import wide_kernels as WK
     from libbsc_tpu_torch.ops import wide_schedule as WS
-    from tools import schedule_step_split
+    from tools import chase_variants, schedule_step_split
 
     u_d = torch.from_numpy(st["U"]).to(device)
     n = len(st["U"])
@@ -1201,8 +1221,12 @@ def time_scan(st: dict, device, clock_mhz: float) -> list:
     lanes = {"longest_lane": int(st["sizes"].max()),
              "longest_run": int(ev[1].max())}
     r, primary = st["r"], st["primary"]
-    packed, heads = bwt.chase_inputs(u_d, primary, st["aux"])
+    pairs, ends, heads = bwt.chase_inputs(u_d, primary, st["aux"])
+    u_sorted = torch.sort(u_d, stable=True)[1]
     chains = int(heads.shape[0])
+    # the chase loads a row for each two steps; a chain's odd last step
+    # needs none
+    loads = sum(min(r, n - t * r) // 2 for t in range(chains))
     runs = {  # name -> (kernel, plain, bytes, operations)
         "sched_events": (
             lambda: WS.schedule_events(u_d, rs, starts, sizes_d, frid_ext),
@@ -1213,10 +1237,14 @@ def time_scan(st: dict, device, clock_mhz: float) -> list:
             lambda: WS.schedule_planes(*ev, frid_ext, IT),
             lambda: WS.schedule_planes_plain(*ev, frid_ext, IT),
             12 * R + 8 * (2 * L + 1) + L * IT // 4, L * IT),
-        "unbwt_chase": (
-            lambda: bwt.chase(packed, heads, r, n),
-            lambda: bwt.chase_plain(packed, heads, r, n),
-            8 * (n + 1) + 8 * chains + n, n),
+        "unbwt_table": (  # 8 search steps a row
+            lambda: bwt.pair_table(u_sorted, primary, ends),
+            lambda: bwt.pair_table_plain(u_sorted, primary, ends),
+            8 * n + 4 * 256 + 8 * (n + 1), 8 * (n + 1)),
+        "unbwt_chase": (  # 8 search steps a row's own char
+            lambda: bwt.chase(pairs, ends, heads, r, n),
+            lambda: bwt.chase_plain(pairs, ends, heads, r, n),
+            8 * loads + 4 * 256 + 4 * chains + n, 8 * (n - loads)),
     }
     rows = []
     for name, (kernel, plain, nbytes, ops) in runs.items():
@@ -1245,29 +1273,36 @@ def time_scan(st: dict, device, clock_mhz: float) -> list:
         extra = ""
         if name == "unbwt_chase":
             row = rows[-1]
-            row["psi_sort_ms"] = cuda_ms(
+            row["sort_ms"] = cuda_ms(
                 lambda: torch.sort(u_d, stable=True), TIMED_LAUNCHES)
             row["table_ms"] = cuda_ms(
                 lambda: bwt.chase_inputs(u_d, primary, st["aux"]),
                 TIMED_LAUNCHES)
-            row["latency_floor_ms"] = chase_latency(packed, heads, r, n,
-                                                    st["lz"])
+            row["latency_floor_ms"] = chase_latency(
+                lambda h, m: bwt.chase(pairs, ends, h, r, m), heads, r, n,
+                st["lz"])
+            row["loads"] = loads
             extra = (f", one chain alone {row['latency_floor_ms']:.3f} ms "
-                     f"({row['latency_floor_ms'] * 1e6 / r:.0f} ns a "
-                     f"dependent load; {r} loads); its table: "
+                     f"({row['latency_floor_ms'] * 2e6 / r:.0f} ns a "
+                     f"dependent load; {r // 2} loads); its table: "
                      f"torch.sort(stable=True) of the block "
-                     f"{row['psi_sort_ms']:.3f} ms, chase_inputs "
-                     f"{row['table_ms']:.3f} ms")
+                     f"{row['sort_ms']:.3f} ms, chase_inputs (sort, bucket "
+                     f"ends, table kernel) {row['table_ms']:.3f} ms")
         print(f"phase 2 time {name}: {ms:.4f} ms (bound {b:.4f} ms by {by})"
               f", plain {plain_ms:.1f} ms{extra}; {n} bytes, {R} runs, "
               f"{max_bits} iterations, {chains} chains of {r}, longest lane "
               f"{lanes['longest_lane']} bytes, longest run "
               f"{lanes['longest_run']}", flush=True)
-    repo = os.path.dirname(os.path.abspath(__file__))
-    csrc = os.path.join(repo, "libbsc_tpu_torch", "csrc")
+    del pairs, ends, heads, u_sorted
+    repo = Path(os.path.dirname(os.path.abspath(__file__)))
+    build = repo / "libbsc_tpu_torch" / "_build"
+    k8 = next(row for row in rows if row["name"] == "unbwt_chase")
+    k8.update(chase_variants.run(u_d, primary, st["aux"], r, st["lz"],
+                                 build / "chase_variants"))
+    csrc = str(repo / "libbsc_tpu_torch" / "csrc")
     split = schedule_step_split.run(
         [Path(csrc)], u_d, st["sizes"], clock_mhz,
-        Path(repo) / "libbsc_tpu_torch" / "_build" / "schedule_step_split")
+        build / "schedule_step_split")
     row = split[csrc]
     rows[0].update({k: row[k] for k in ("longest_lane_ms", "most_runs_ms",
                                         "cycles_per_run_from_ms")},
@@ -2058,7 +2093,8 @@ def sched_payloads(u: bytes, device) -> None:
             dev[2] != host[2] or got != want or want is None:
         fail("TBSC_WIDE_DEV_SCHED: planes or payload differ from the "
              "native walker's")
-    if launched != {"unbwt_chase": 0, "sched_events": 2, "sched_planes": 2}:
+    if launched != {"unbwt_table": 0, "unbwt_chase": 0, "sched_events": 2,
+                    "sched_planes": 2}:
         fail(f"TBSC_WIDE_DEV_SCHED: K9 and K10 did not launch once a "
              f"schedule: {launched}")
     print(f"phase 10 (c) device_schedule: TBSC_WIDE_DEV_SCHED planes and "

@@ -102,8 +102,10 @@ _SIGNATURES = {
     "byte_hist": ("byte_hist", "byte_hist_launch", [_VP, _L, _VP, _VP]),
     "adler_partials": ("adler_partials", "adler_partials_launch",
                        [_VP, _L, _VP, _VP]),
+    "unbwt_table": ("unbwt_chase", "unbwt_table_launch",
+                    [_VP, _L, ctypes.c_uint32, _VP, _VP, _VP]),
     "unbwt_chase": ("unbwt_chase", "unbwt_chase_launch",
-                    [_VP, _VP, _I, _I, _L, _VP, _VP]),
+                    [_VP] * 3 + [_I, _I, _L, _VP, _VP]),
     "sched_events": ("wide_schedule", "sched_events_launch",
                      [_VP] * 5 + [_I] + [_VP] * 6),
     "sched_planes": ("wide_schedule", "sched_planes_launch",

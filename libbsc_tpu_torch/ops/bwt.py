@@ -24,9 +24,13 @@ Inverse of the default format (:func:`bwt_decode`, the ``TBSC_ENGINE=ops``
 route): the LF permutation is list-ranked by pointer doubling, a fixed
 ceil(log2 n) rounds of two gathers each, with no host sync.  Inverse of the
 wide-aux profile: the tail gives (n-1)//r + 1 independent forward chains
-(the primary and each aux index), chased by K8 (``csrc/unbwt_chase.cu``,
-one thread a chain; its plain version :func:`chase_plain` gathers the
-packed (first char, PSI) table for every chain at once, r steps).
+(the primary and each aux index), chased by K8 (``csrc/unbwt_chase.cu``):
+one stable sort of the chars, then a kernel that writes a two-step table
+(row k: PSI[PSI[k]] and the char of row PSI[k]), then one thread a chain,
+two steps a load.  The rows are sorted by their first char, so the chase
+finds a row's own char among the 256 bucket ends.  The plain versions
+(:func:`pair_table_plain`, :func:`chase_plain`) step every chain at once,
+r / 2 gathers.
 """
 
 from __future__ import annotations
@@ -38,7 +42,7 @@ from . import _cuda
 _BOOT_DEPTH = 15
 _TWO32 = 1 << 32
 
-LAUNCHES = {"unbwt_chase": 0}
+LAUNCHES = {"unbwt_table": 0, "unbwt_chase": 0}
 
 
 def reset_launches() -> None:
@@ -462,17 +466,76 @@ def bwt_encode_wideaux_device(data: torch.Tensor, r: int):
 
 
 def chase_inputs(T: torch.Tensor, index: int, aux: torch.Tensor):
-    """The wide-aux chase's table and start rows.  The table, int64
-    [n + 1]: row k holds (first char of row k) << 32 | PSI[k], from one
-    stable sort of the BWT chars: the sorted chars are the rows' first
-    chars (row 0, the sentinel, has char 0), and the positions they came
-    from are PSI[1..]; PSI[0] is the primary.  The start rows, int64
-    [chains]: the primary, then each aux index + 1."""
-    head = torch.tensor([index], device=T.device)
+    """K8's table and start rows, from one stable sort of the BWT chars:
+    the sorted chars are the rows' first chars (row 0, the sentinel, has
+    char 0), and the positions they came from give PSI[1..]; PSI[0] is
+    the primary.  Returns (the two-step table i64 [n + 1] from
+    :func:`pair_table`, the bucket ends i32 [256] from
+    :func:`bucket_ends`, the start rows i32 [chains]: the primary, then
+    each aux index + 1)."""
     chars, u_sorted = torch.sort(T, stable=True)
-    psi = torch.cat([head, u_sorted + (u_sorted >= index).long()])
-    row_char = torch.cat([torch.zeros_like(head), chars.long()])
-    return (row_char << 32) | psi, torch.cat([head, aux.long() + 1])
+    ends = bucket_ends(chars)
+    del chars
+    head = torch.tensor([index], dtype=torch.int32, device=T.device)
+    return (pair_table(u_sorted, index, ends), ends,
+            torch.cat([head, aux.to(torch.int32) + 1]))
+
+
+def bucket_ends(chars: torch.Tensor) -> torch.Tensor:
+    """i32 [256]: ends[c] = 1 + #(chars <= c) for the sorted u8 ``chars``,
+    the row after bucket c in the table (row 0 is the sentinel).  The
+    first char of row k is the number of ends at or below k."""
+    probe = torch.arange(256, dtype=torch.uint8, device=chars.device)
+    return (torch.searchsorted(chars, probe, right=True) + 1).to(torch.int32)
+
+
+def row_chars(ends: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """The first char of each of ``rows``, u8: the number of bucket ends
+    at or below it."""
+    return torch.searchsorted(ends, rows.to(torch.int32),
+                              right=True).to(torch.uint8)
+
+
+def psi_rows(u_sorted: torch.Tensor, index: int) -> torch.Tensor:
+    """PSI i64 [n + 1] from the stable sort's indices ``u_sorted`` [n]:
+    row 0 is the primary ``index``, row k >= 1 is u + (u >= index) with
+    u = u_sorted[k - 1]."""
+    head = torch.tensor([index], device=u_sorted.device)
+    return torch.cat([head, u_sorted + (u_sorted >= index).long()])
+
+
+def pair_table(u_sorted: torch.Tensor, index: int,
+               ends: torch.Tensor) -> torch.Tensor:
+    """K8's table kernel.  i64 [n + 1], two steps a row: row k holds
+    PSI[PSI[k]] in the low 32 bits and the first char of row PSI[k]
+    above them (:func:`psi_rows`, :func:`row_chars`)."""
+    if u_sorted.dtype != torch.int64 or u_sorted.dim() != 1 or \
+            not u_sorted.is_contiguous():
+        raise ValueError("pair_table: u_sorted must be a contiguous 1-D "
+                         "int64 tensor")
+    dev = u_sorted.device
+    if ends.dtype != torch.int32 or ends.shape != (256,) or \
+            ends.device != dev or dev.type not in ("cpu", "cuda"):
+        raise ValueError("pair_table: 256 int32 bucket ends on the sort's "
+                         "CPU or CUDA device")
+    if dev.type == "cpu":
+        return pair_table_plain(u_sorted, index, ends)
+    n = int(u_sorted.shape[0])
+    pairs = torch.empty(n + 1, dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):
+        rc = _cuda.launcher("unbwt_table")(
+            u_sorted.data_ptr(), n, index, ends.data_ptr(),
+            pairs.data_ptr(), _cuda.stream_handle(dev))
+    _cuda.check("unbwt_table", rc)
+    LAUNCHES["unbwt_table"] += 1
+    return pairs
+
+
+def pair_table_plain(u_sorted: torch.Tensor, index: int,
+                     ends: torch.Tensor) -> torch.Tensor:
+    """K8's table kernel's plain version."""
+    psi = psi_rows(u_sorted, index)
+    return row_chars(ends, psi).long() << 32 | psi[psi]
 
 
 def unbwt_wideaux(T: torch.Tensor, index: int, aux: torch.Tensor, r: int,
@@ -483,43 +546,51 @@ def unbwt_wideaux(T: torch.Tensor, index: int, aux: torch.Tensor, r: int,
     return chase(*chase_inputs(T, index, aux), r, n)
 
 
-def chase(packed: torch.Tensor, starts: torch.Tensor, r: int,
-          n: int) -> torch.Tensor:
-    """K8.  u8 [min(n, chains * r)]: chain t walks r steps from row
-    ``starts[t]`` through :func:`chase_inputs`'s ``packed``, emitting the
-    char of each row it leaves at position t r + step.  The rows must lie
-    in [0, len(packed)): the API checks the wide-aux tail first."""
-    for t in (packed, starts):
-        if t.dtype != torch.int64 or t.dim() != 1 or not t.is_contiguous():
-            raise ValueError("chase: packed and starts must be contiguous "
-                             "1-D int64 tensors")
-    dev = packed.device
-    if starts.device != dev or dev.type not in ("cpu", "cuda") or r < 1:
-        raise ValueError("chase: inputs on different or unsupported "
-                         f"devices, or a rate {r} below 1")
+def chase(pairs: torch.Tensor, ends: torch.Tensor, starts: torch.Tensor,
+          r: int, n: int) -> torch.Tensor:
+    """K8's chase.  u8 [min(n, chains * r)]: chain t walks r steps from
+    row ``starts[t]``, two a load of :func:`chase_inputs`' ``pairs``,
+    emitting at position t r + step the first char of each row it leaves:
+    a row's own char from the bucket ``ends``, the next row's from the
+    table.  The rows must lie in [0, len(pairs)): the API checks the
+    wide-aux tail first."""
+    if pairs.dtype != torch.int64 or ends.dtype != torch.int32 or \
+            starts.dtype != torch.int32 or \
+            not all(t.dim() == 1 and t.is_contiguous()
+                    for t in (pairs, ends, starts)):
+        raise ValueError("chase: pairs (int64), ends and starts (int32) "
+                         "must be contiguous 1-D tensors")
+    dev = pairs.device
+    if ends.shape[0] != 256 or {ends.device, starts.device} != {dev} or \
+            dev.type not in ("cpu", "cuda") or r < 1:
+        raise ValueError("chase: 256 bucket ends, all inputs on one CPU or "
+                         f"CUDA device, and a rate of at least 1 (got {r})")
     if dev.type == "cpu":
-        return chase_plain(packed, starts, r, n)
+        return chase_plain(pairs, ends, starts, r, n)
     chains = int(starts.shape[0])
     out = torch.empty(min(n, chains * r), dtype=torch.uint8, device=dev)
     if out.numel():
         with torch.cuda.device(dev):
             rc = _cuda.launcher("unbwt_chase")(
-                packed.data_ptr(), starts.data_ptr(), chains, r, n,
-                out.data_ptr(), _cuda.stream_handle(dev))
+                pairs.data_ptr(), ends.data_ptr(), starts.data_ptr(),
+                chains, r, n, out.data_ptr(), _cuda.stream_handle(dev))
         _cuda.check("unbwt_chase", rc)
         LAUNCHES["unbwt_chase"] += 1
     return out
 
 
-def chase_plain(packed: torch.Tensor, starts: torch.Tensor, r: int,
-                n: int) -> torch.Tensor:
-    """K8's plain version: every chain steps at once, one gather of the
-    packed table a step."""
-    k = starts
+def chase_plain(pairs: torch.Tensor, ends: torch.Tensor,
+                starts: torch.Tensor, r: int, n: int) -> torch.Tensor:
+    """K8's chase's plain version: every chain steps at once, two steps a
+    gather of the table (for an odd r, a last single step and no
+    gather)."""
+    k = starts.long()
     out = torch.empty((r, k.shape[0]), dtype=torch.uint8,
-                      device=packed.device)
-    for step in range(r):
-        w = packed[k]
-        out[step] = (w >> 32).to(torch.uint8)
-        k = w & 0xFFFFFFFF
+                      device=pairs.device)
+    for step in range(0, r, 2):
+        out[step] = row_chars(ends, k)
+        if step + 1 < r:
+            w = pairs[k]
+            out[step + 1] = (w >> 32).to(torch.uint8)
+            k = w & 0xFFFFFFFF
     return out.t().reshape(-1)[:n]

@@ -7,9 +7,9 @@ the device BWT, the sample-sort ST step on a mesh that lists cuda:0
 twice, the DC3 device BWT, the list-ranking inverse BWT (on cuda against
 its CPU run at 4 MiB, and through the API under TBSC_ENGINE=ops) and the
 lockstep range coder against the serial reference; K8 (the wide-aux
-chase) at any rate, K9 and K10 (the bit schedule) on its edge block, the
-hard blocks and their batch and tile edges, their launches on the fused
-route, and the v1 schedule
+inverse BWT: its chase at any rate, its table kernel), K9 and K10 (the
+bit schedule) on its edge block, the hard blocks and their batch and tile
+edges, their launches on the fused route, and the v1 schedule
 (TBSC_WIDE_DEV_SCHED) through them against the native walker.
 
 These tests need a CUDA device and skip without one.  tests/conftest.py
@@ -535,7 +535,7 @@ def test_wide_rc_on_cuda_equals_the_serial_reference(cuda):
     assert bits == [[b for b, _, _ in seq] for seq in lanes]
 
 
-_SCAN = ("sched_events", "sched_planes", "unbwt_chase")
+_SCAN = ("sched_events", "sched_planes", "unbwt_table", "unbwt_chase")
 
 
 def _scan_launches() -> dict:
@@ -544,7 +544,7 @@ def _scan_launches() -> dict:
 
 @pytest.mark.parametrize("case", ["edges", "random", "zeros", "skewed"])
 def test_scan_kernels_equal_plain_on_hard_blocks(cuda, case):
-    """K8, K9 and K10 against their plain versions through
+    """K8 (table and chase), K9 and K10 against their plain versions through
     chip_smoke.check_scan (also: K10's planes against the native walker's
     for the same lane table, K8's chase against the block) on the
     schedule's edge block (an empty lane, a one-run lane, all 256 byte
@@ -587,19 +587,45 @@ def test_schedule_kernels_on_batch_edges(cuda, case):
 
 @pytest.mark.parametrize("r", [1, 100, 256, 1000, 4096])
 def test_chase_kernel_at_any_rate(cuda, r):
-    """K8 with 16-byte stores (r a multiple of 16) and a byte a step
-    (other r), n = 37 r - 1, 37 r and 37 r + 1."""
+    """K8's chase with 16-byte stores (r a multiple of 16) and a byte a
+    step (other r), n = 37 r - 1, 37 r and 37 r + 1."""
     for n in (37 * r - 1, 37 * r, 37 * r + 1):
         data = _text(n, r + n)
         d = torch.from_numpy(np.frombuffer(data, np.uint8).copy()).to(cuda)
         U, primary, aux = BW.bwt_encode_wideaux_device(d, r)
-        packed, heads = BW.chase_inputs(U, int(primary), aux)
+        pairs, ends, heads = BW.chase_inputs(U, int(primary), aux)
         before = BW.LAUNCHES["unbwt_chase"]
-        out = BW.chase(packed, heads, r, n)
+        out = BW.chase(pairs, ends, heads, r, n)
         torch.cuda.synchronize()
         assert BW.LAUNCHES["unbwt_chase"] == before + 1
-        assert torch.equal(out, BW.chase_plain(packed, heads, r, n))
+        assert torch.equal(out, BW.chase_plain(pairs, ends, heads, r, n))
         assert out.cpu().numpy().tobytes() == data
+
+
+@pytest.mark.parametrize("r", [1, 100, 256, 4096])
+def test_table_kernel_equals_plain(cuda, r):
+    """K8's table kernel against its plain version (and its CPU run) at
+    n = 37 r - 1, 37 r and 37 r + 1, and on a block of all 256 byte
+    values (every bucket's char in the table); the launch counter rises
+    by one a call."""
+    g = np.random.default_rng(r)
+    all256 = np.repeat(np.arange(256, dtype=np.uint8), 3 + r // 64)
+    g.shuffle(all256)
+    blocks = [np.frombuffer(_text(n, 7 * r + n), np.uint8)
+              for n in (37 * r - 1, 37 * r, 37 * r + 1)] + [all256]
+    for data in blocks:
+        d = torch.from_numpy(data.copy()).to(cuda)
+        U, primary, _ = BW.bwt_encode_wideaux_device(d, r)
+        chars, u_sorted = torch.sort(U, stable=True)
+        ends = BW.bucket_ends(chars)
+        before = BW.LAUNCHES["unbwt_table"]
+        pairs = BW.pair_table(u_sorted, int(primary), ends)
+        torch.cuda.synchronize()
+        assert BW.LAUNCHES["unbwt_table"] == before + 1
+        assert torch.equal(pairs, BW.pair_table_plain(u_sorted, int(primary),
+                                                      ends))
+        assert torch.equal(pairs.cpu(), BW.pair_table(
+            u_sorted.cpu(), int(primary), ends.cpu()))
 
 
 def test_fused_route_launches_k8_to_k10_once(cuda, monkeypatch):
@@ -612,13 +638,13 @@ def test_fused_route_launches_k8_to_k10_once(cuda, monkeypatch):
     WS.reset_launches()
     blob = P.compress(data, block_sorter=C.BLOCKSORTER_BWT_WIDEAUX,
                       coder=C.CODER_QLFC_WIDE)
-    assert _scan_launches() == {"unbwt_chase": 0, "sched_events": 1,
-                                "sched_planes": 1}
+    assert _scan_launches() == {"unbwt_table": 0, "unbwt_chase": 0,
+                                "sched_events": 1, "sched_planes": 1}
     BW.reset_launches()
     WS.reset_launches()
     assert P.decompress(blob) == data
-    assert _scan_launches() == {"unbwt_chase": 1, "sched_events": 0,
-                                "sched_planes": 0}
+    assert _scan_launches() == {"unbwt_table": 1, "unbwt_chase": 1,
+                                "sched_events": 0, "sched_planes": 0}
 
 
 def test_v1_schedule_through_k9_k10_equals_native(cuda, monkeypatch):
