@@ -52,9 +52,23 @@ Phases, one line or more each:
      (the schedule split into lanes, stats, events (K9), planes (K10) and
      transpose; the inverse BWT into psi, K8's table: the sort, the
      bucket ends and the table kernel, and chase, K8's chase); the archive those stages compose must equal the main path's, so
-     the breakdown cannot drift from the code it times;
+     the breakdown cannot drift from the code it times.  After the first
+     (counted) calls, three warm calls each way, timed (the warm MB/s
+     beside the first call's): each archive must equal the composed one,
+     each decode restore the block, the host buffer pool's slots
+     (utils/bufpool) keep their addresses, and the fused route's two copy
+     slots ("compress_lz", "decompress_lz") be page-locked;
+     (b) the split of the time outside the stages, tools/host_split.py on
+     this checkout in a fresh process: compress and decompress walls, the
+     process's first call and three warm ones, beside the sums of their
+     TBSC_TRACE stages, and each host step outside the stages alone, cold
+     and warm (the Adler-32s, allocations and copies, tobytes, the LZP
+     attempt's output, H2D and D2H pageable and page-locked, a pinned
+     slot's allocation in this thread and in new ones), and the CLI on
+     phase 8's file, -m9 -e4 -G with the farm and -t, three times;
   4. the v2 main path: the same with wide_kernels.RANS = False.  K5 and K4
-     must have launched and K1, K2 and K3 not (K8-K10 as in phase 3);
+     must have launched and K1, K2 and K3 not (K8-K10 as in phase 3); its
+     warm calls and pool checks as phase 3's;
   5. many blocks: three other 25 MiB blocks of the corpus, each after the
      port's device BWT, through device_encode_many (each payload must
      equal device_encode of its block) and device_decode_many (each block
@@ -190,6 +204,7 @@ MANY_BLOCKS = 3
 STEP_BLOCKS = 2              # phase 6's local batch
 CLI_TAIL = 1_234_567         # phase 8's file: two blocks and this tail
 TIMED_LAUNCHES = 5
+WARM_CALLS = 3               # phase 3's warm calls after the first
 STATS_LAUNCHES = 40          # K6 and K7 take microseconds a launch
 COLD_COPIES = 4              # 4 x 25 MiB exceeds the 50 MB L2 cache
 REPLACES = {  # kernel -> the Pallas kernel it replaces
@@ -755,10 +770,11 @@ def main_path(data: bytes, features: int, composed: bytes, device,
     scan_dec = scan_launches()
     launches = dict(WK.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
-    WK.RANS = True
-    ran, idle = (V3, V2) if rans else (V2, V3)
     if back != data:
         fail(f"{coder}: the device decode did not restore the input")
+    warm_enc, warm_dec = warm_calls(data, kw, composed, archive)
+    WK.RANS = True
+    ran, idle = (V3, V2) if rans else (V2, V3)
     if min(launches[k] for k in ran) == 0 or max(launches[k] for k in idle):
         fail(f"{coder}: the main path did not run its kernels, and only "
              f"them: {launches}")
@@ -776,8 +792,67 @@ def main_path(data: bytes, features: int, composed: bytes, device,
     print(f"phase {phase} {coder} main path: {len(data)} -> {len(archive)} "
           f"bytes, encode {mb / t_enc * 1e3:.2f} MB/s ({t_enc:.1f} ms), "
           f"decode {mb / t_dec * 1e3:.2f} MB/s ({t_dec:.1f} ms), peak device "
-          f"memory {peak} B, launches {launches}", flush=True)
+          f"memory {peak} B, launches {launches}; warm (best of "
+          f"{len(warm_enc)}) encode {mb / min(warm_enc) * 1e3:.2f} MB/s "
+          f"({'/'.join(f'{t:.1f}' for t in warm_enc)} ms), decode "
+          f"{mb / min(warm_dec) * 1e3:.2f} MB/s "
+          f"({'/'.join(f'{t:.1f}' for t in warm_dec)} ms)", flush=True)
     return launches, archive
+
+
+def warm_calls(data: bytes, kw: dict, composed: bytes, archive: bytes):
+    """WARM_CALLS more api.compress / api.decompress calls of the main
+    path after its first, timed (ms lists).  Each archive must equal the
+    composed one and each decode must restore the block; the host buffer
+    pool's slots on this thread must keep the addresses they had after
+    the first call, and the fused route's two copy slots ("compress_lz",
+    the H2D's source, and "decompress_lz", the D2H's destination) must be
+    page-locked."""
+    import torch
+
+    import libbsc_tpu_torch as P
+    from libbsc_tpu_torch.utils import bufpool
+
+    def held():
+        return {k: (v.ctypes.data, len(v)) for k, v in bufpool.slots().items()}
+
+    first = held()
+    enc, dec = [], []
+    for _ in range(WARM_CALLS):
+        a, t = timed(lambda: P.compress(data, **kw))
+        enc.append(t)
+        b, t = timed(lambda: P.decompress(archive))
+        dec.append(t)
+        if a != composed or b != data:
+            fail("a warm call's archive differs from the composed one or "
+                 "its decode did not restore the block")
+        if held() != first:
+            fail(f"the pool's slots moved in a warm call: {first} -> "
+                 f"{held()}")
+    pinned = sorted(k[0] for k, v in bufpool.slots().items()
+                    if k[1] and torch.from_numpy(v).is_pinned())
+    if pinned != ["compress_lz", "decompress_lz"]:
+        fail(f"the fused route's slots are not page-locked: pinned {pinned} "
+             f"of {sorted(bufpool.slots())}")
+    return enc, dec
+
+
+def host_split(repo: str) -> None:
+    """Phase 3 (b): tools/host_split.py on this checkout, in a fresh
+    process, so its first call is the process's first: the -m9 -e4 -G
+    walls beside their stages and each host step outside the stages,
+    cold and warm (see the tool).  Fails when the tool fails."""
+    from tools import host_split as tool
+
+    out = subprocess.run([sys.executable, tool.__file__, "--tree", repo],
+                         capture_output=True, text=True, timeout=900)
+    lines = [ln[10:] for ln in out.stdout.splitlines()
+             if ln.startswith("HOSTSPLIT ")]
+    if out.returncode != 0 or not lines:
+        fail(f"tools/host_split.py exit {out.returncode}:\n"
+             f"{out.stdout[-2000:]}{out.stderr[-4000:]}")
+    print(f"phase 3 (b) host split: {tool.summary(json.loads(lines[0]))}; "
+          f"{smi()}", flush=True)
 
 
 def many(blocks: list, device) -> None:
@@ -2296,6 +2371,7 @@ def main() -> int:
     launches, archive = main_path(data, features, composed[True], device,
                                   rans=True)
     breakdown(data, features, archive, device)
+    host_split(repo)
     launches.update({k: v for k, v in main_path(
         data, features, composed[False], device, rans=False)[0].items()
         if k in V2})

@@ -22,6 +22,15 @@ ST run on the port's native runtime.
 512 KiB sample windows gain nothing from it, as in the JAX package; the
 mode word records whether LZP ran.
 
+Host buffers come from the per-thread pool (``utils/bufpool``) at the JAX
+package's slots: ``"compress_lz"`` (LZP's output or the raw block; page-
+locked when the device route is CUDA, as it feeds the fused route's H2D),
+``"compress_coder"``, and for :func:`decompress` alone ``"decompress_lz"``
+(the entropy-decoded block; page-locked for the fused route's D2H on
+CUDA) and ``"decompress_out"``.  Every call returns ``bytes``, never a
+view of a slot; :func:`decompress_batch` holds many blocks at once and
+keeps fresh buffers.
+
 ``init(features, device=None)`` chooses the device: ``None`` means
 ``cuda``, which must be present; ``device="cpu"`` runs every kernel's
 plain PyTorch version instead.  ``TBSC_ENGINE`` (``engine._force``)
@@ -48,6 +57,7 @@ from .format.header import (
 )
 from .errors import BscError, corrupt
 from .ops import wide
+from .utils import bufpool
 from .utils.adler32 import adler32
 from .utils.trace import stage
 
@@ -86,8 +96,9 @@ def init(features: int = C.DEFAULT_FEATURES, device=None) -> int:
 def init_full(features: int = C.DEFAULT_FEATURES, malloc=None,
               zero_malloc=None, free=None, device=None) -> int:
     """bsc_init_full: :func:`init` with the reference's allocator hooks,
-    which are accepted and ignored (host buffers are numpy's, device
-    buffers torch's caching allocator's)."""
+    which are accepted and ignored (host buffers are numpy's and the
+    pool's, ``utils/bufpool``; device buffers torch's caching
+    allocator's)."""
     del malloc, zero_malloc, free
     return init(features, device)
 
@@ -139,6 +150,7 @@ def compress(data: bytes, lzp_hash_size: int = C.DEFAULT_LZPHASHSIZE,
         return store(data)
     features = _state["features"] if features is None else features
     device = _device_route(features)
+    pinned = device is not None and device.type == "cuda"
     adler_data = adler32(data)
     buf = np.frombuffer(data, dtype=np.uint8)
 
@@ -148,12 +160,14 @@ def compress(data: bytes, lzp_hash_size: int = C.DEFAULT_LZPHASHSIZE,
         mode &= 0xFF
     if mode != (mode & 0xFF):
         with _stage("lzp_compress", n):
-            lz = engine.lzp_compress(buf, lzp_hash_size, lzp_min_len,
-                                     features)
+            lz = engine.lzp_compress(
+                buf, lzp_hash_size, lzp_min_len, features,
+                out=bufpool.get("compress_lz", n + 1024, pinned))
         if lz is None:
             mode &= 0xFF
     if lz is None:
-        lz = buf.copy()
+        lz = bufpool.get("compress_lz", n, pinned)
+        np.copyto(lz, buf)
     if len(lz) <= C.HEADER_SIZE:
         block_sorter = C.BLOCKSORTER_BWT
         mode = (mode & ~0x1F) | C.BLOCKSORTER_BWT
@@ -200,7 +214,9 @@ def compress(data: bytes, lzp_hash_size: int = C.DEFAULT_LZPHASHSIZE,
                     payload = wide.wide_encode(lz.tobytes(), n_lanes=lanes)
         else:
             with _stage("coder_compress", len(lz)):
-                payload = engine.coder_compress(lz, coder, features)
+                payload = engine.coder_compress(
+                    lz, coder, features,
+                    out=bufpool.get("compress_coder", len(lz) + 4096))
 
     tail_len = (5 if wideaux_r is not None else 1) + 4 * num_indexes
     if payload is None or len(payload) + tail_len >= n:
@@ -265,9 +281,15 @@ def _check_wide_size(payload: bytes, h) -> int:
     return isize
 
 
-def _decode_to_sorter(block: bytes, expected_size: int | None):
+def _decode_to_sorter(block: bytes, expected_size: int | None,
+                      scratch: bool = False):
     """Header and Adler checks, then the entropy decode; stops before the
-    sorter.  Returns the stored bytes or the state for the sorter."""
+    sorter.  Returns the stored bytes or the state for the sorter.
+
+    ``scratch=True`` decodes into the per-thread pool (``"decompress_lz"``)
+    and lets :func:`_finish_decode` use ``"decompress_out"``: only for a
+    single-block decompress, where one decoded block per thread is live;
+    :func:`decompress_batch` holds many and keeps fresh buffers."""
     h = parse_block_header(block)
     if isinstance(h, int):
         _raise(h)
@@ -308,9 +330,11 @@ def _decode_to_sorter(block: bytes, expected_size: int | None):
         if block_sorter == C.BLOCKSORTER_BWT_WIDEAUX and device is not None:
             r = engine.wideaux_rate(tsize)
             _check_wideaux(h.index, indexes, tsize, r)
+            dst = (bufpool.get("decompress_lz", tsize,
+                               device.type == "cuda") if scratch else None)
             with _stage("decompress_block_device", len(payload)):
                 out = engine.decompress_block_device(
-                    payload, h.index, indexes, r, tsize, device)
+                    payload, h.index, indexes, r, tsize, device, out=dst)
             if out is not None:
                 lz, sorted_done = out, True
         if lz is None and device is not None:
@@ -325,10 +349,12 @@ def _decode_to_sorter(block: bytes, expected_size: int | None):
                 lz = np.frombuffer(wide.wide_decode(payload),
                                    dtype=np.uint8).copy()
     else:
+        dst = (bufpool.get("decompress_lz", h.data_size + 4096)
+               if scratch else None)
         with _stage("coder_decompress", len(payload)):
             lz = engine.coder_decompress(
                 np.frombuffer(payload, dtype=np.uint8), coder,
-                _state["features"], capacity=h.data_size + 4096)
+                _state["features"], capacity=h.data_size + 4096, out=dst)
         if isinstance(lz, int):
             _raise(lz)
     if not (block_sorter in (C.BLOCKSORTER_BWT, C.BLOCKSORTER_BWT_WIDEAUX)
@@ -337,7 +363,8 @@ def _decode_to_sorter(block: bytes, expected_size: int | None):
     return {"h": h, "lz": lz, "sorter": block_sorter, "sorted": sorted_done,
             "num_indexes": num_indexes, "indexes": indexes,
             "lzp_hash_size": (h.mode >> 16) & 0xFF,
-            "lzp_min_len": (h.mode >> 8) & 0xFF, "device": device}
+            "lzp_min_len": (h.mode >> 8) & 0xFF, "device": device,
+            "scratch": scratch}
 
 
 def _run_sorter(st) -> None:
@@ -367,11 +394,13 @@ def _run_sorter(st) -> None:
 def _finish_decode(st) -> bytes:
     h, lz = st["h"], st["lz"]
     if st["lzp_hash_size"] or st["lzp_min_len"]:
+        dst = (bufpool.get("decompress_out", h.data_size + 4096)
+               if st["scratch"] else None)
         with _stage("lzp_decompress", len(lz)):
             out = engine.lzp_decompress(lz, st["lzp_hash_size"],
                                         st["lzp_min_len"],
                                         _state["features"],
-                                        capacity=h.data_size + 4096)
+                                        capacity=h.data_size + 4096, out=dst)
         if isinstance(out, int):
             _raise(out)
     else:
@@ -385,7 +414,7 @@ def _finish_decode(st) -> bytes:
 def decompress(block: bytes, expected_size: int | None = None) -> bytes:
     """bsc_decompress: one block (header + payload)."""
     _ensure_init()
-    st = _decode_to_sorter(block, expected_size)
+    st = _decode_to_sorter(block, expected_size, scratch=True)
     if isinstance(st, bytes):
         return st
     _run_sorter(st)

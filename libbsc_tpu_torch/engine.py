@@ -57,11 +57,38 @@ _device = None  # the API's device (init), where the numpy engine's ops run
 # The native runtime's code for a sorter it alone implements.
 _NATIVE_ONLY = -10
 
+_mallopt_done = False
+
+
+def _tune_allocator() -> None:
+    """Keep large buffers on the reusable heap (glibc mallopt).
+
+    The per-block working buffers are tens of MB; glibc's default mmap
+    threshold maps and unmaps them every call (torch's CPU tensors and the
+    ``bytes`` the API returns among them), and a fresh multi-MB first
+    touch pays a page fault a page.  Routing big allocations through brk
+    and disabling trim keeps them cached across calls: the allocator-hook
+    counterpart of the reference's bsc_malloc customization point
+    (platform.cpp:126-190).  Once per process; where libc cannot be
+    loaded, nothing changes.
+    """
+    global _mallopt_done
+    if _mallopt_done:
+        return
+    _mallopt_done = True
+    try:
+        libc = ctypes.CDLL("libc.so.6", use_errno=True)
+        libc.mallopt(-4, 0)           # M_MMAP_MAX = 0
+        libc.mallopt(-1, 2**31 - 1)   # M_TRIM_THRESHOLD: never trim
+    except (OSError, AttributeError):  # no glibc: nothing to tune
+        pass
+
 
 def init(device) -> None:
-    """Record the API's device; load the native runtime unless the engine
-    is ``numpy``."""
+    """Record the API's device, tune the allocator (once a process) and
+    load the native runtime unless the engine is ``numpy``."""
     global _device
+    _tune_allocator()
     _device = torch.device(device)
     if _force != "numpy":
         native.load()
@@ -100,24 +127,37 @@ def _as_c(arr: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(arr, dtype=np.uint8)
 
 
+def _out(out, nbytes: int) -> np.ndarray:
+    """``out`` when it holds ``nbytes``, else a fresh buffer: a caller's
+    buffer is never overrun."""
+    if out is None or len(out) < nbytes:
+        return np.empty(nbytes, dtype=np.uint8)
+    return out
+
+
 def lzp_compress(data: np.ndarray, hash_size: int, min_len: int,
-                 features: int):
-    """The LZP stream as ndarray, or None if not compressible."""
+                 features: int, out: np.ndarray | None = None):
+    """The LZP stream as ndarray, or None if not compressible.  ``out``
+    (n + 1024 bytes or more; a pool slot) is written instead of a fresh
+    buffer; the numpy engine ignores it."""
     if _force == "numpy":
         from .fallback import lzp
 
         return lzp.lzp_compress(_as_c(data), hash_size, min_len)
     lib = native.load()
     inp = _as_c(data)
-    out = np.empty(len(inp) + 1024, dtype=np.uint8)
+    out = _out(out, len(inp) + 1024)
     rc = lib.tbsc_lzp_compress(native.u8p(inp), native.u8p(out), len(inp),
                                hash_size, min_len, num_threads(features))
     return None if rc < 0 else out[:rc]
 
 
 def lzp_decompress(data: np.ndarray, hash_size: int, min_len: int,
-                   features: int, capacity: int):
-    """The decoded bytes as ndarray, or a negative error code."""
+                   features: int, capacity: int,
+                   out: np.ndarray | None = None):
+    """The decoded bytes as ndarray, or a negative error code.  ``out``
+    (``capacity`` bytes or more) is written instead of a fresh buffer; the
+    numpy engine ignores it."""
     if _force == "numpy":
         from .fallback import lzp
 
@@ -125,7 +165,7 @@ def lzp_decompress(data: np.ndarray, hash_size: int, min_len: int,
                                                    min_len), capacity)
     lib = native.load()
     inp = _as_c(data)
-    out = np.empty(int(capacity), dtype=np.uint8)
+    out = _out(out, int(capacity))
     rc = lib.tbsc_lzp_decompress(native.u8p(inp), native.u8p(out), len(inp),
                                  hash_size, min_len, num_threads(features))
     return rc if rc < 0 else out[:rc]
@@ -299,27 +339,30 @@ def st_decode_batch(arrays: list, k: int, indexes: list) -> int:
     return rc
 
 
-def coder_compress(data: np.ndarray, coder: int, features: int):
+def coder_compress(data: np.ndarray, coder: int, features: int,
+                   out: np.ndarray | None = None):
     """QLFC static, adaptive or fast encode on the native runtime (in
-    Python under ``TBSC_ENGINE=numpy``).  The payload as ndarray, or None
-    if not compressible."""
+    Python under ``TBSC_ENGINE=numpy``, which ignores ``out``).  The
+    payload as ndarray, or None if not compressible; ``out`` (n + 4096
+    bytes or more) is written instead of a fresh buffer."""
     if _force == "numpy":
         from .fallback import qlfc
 
         return qlfc.coder_compress(_as_c(data), coder)
     lib = native.load()
     inp = _as_c(data)
-    out = np.empty(len(inp) + 4096, dtype=np.uint8)
+    out = _out(out, len(inp) + 4096)
     rc = lib.tbsc_coder_compress(native.u8p(inp), native.u8p(out), len(inp),
                                  coder, num_threads(features))
     return None if rc < 0 else out[:rc]
 
 
 def coder_decompress(data: np.ndarray, coder: int, features: int,
-                     capacity: int):
+                     capacity: int, out: np.ndarray | None = None):
     """QLFC decode on the native runtime (in Python under
-    ``TBSC_ENGINE=numpy``).  The decoded bytes as ndarray, or a negative
-    error code."""
+    ``TBSC_ENGINE=numpy``, which ignores ``out``).  The decoded bytes as
+    ndarray, or a negative error code; ``out`` (``capacity`` bytes or
+    more) is written instead of a fresh buffer."""
     if _force == "numpy":
         from .fallback import qlfc
 
@@ -327,7 +370,7 @@ def coder_decompress(data: np.ndarray, coder: int, features: int,
                         capacity)
     lib = native.load()
     inp = _as_c(data)
-    out = np.empty(int(capacity), dtype=np.uint8)
+    out = _out(out, int(capacity))
     rc = lib.tbsc_coder_decompress(native.u8p(inp), native.u8p(out), coder,
                                    num_threads(features))
     return rc if rc < 0 else out[:rc]
@@ -381,11 +424,28 @@ def bwt_decode_wideaux(data: np.ndarray, index: int, num_indexes: int,
                                     num_indexes, native.i32p(idx))
 
 
+def _copied(device):
+    """An event recorded after the copies queued so far on ``device``'s
+    stream (None off CUDA), to wait on before their host buffer is
+    reused."""
+    if device.type != "cuda":
+        return None
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(device))
+    return event
+
+
 def compress_block_device(lz: np.ndarray, device):
     """Fused device encode of BLOCKSORTER_BWT_WIDEAUX + CODER_QLFC_WIDE.
     Returns (index, num_indexes, indexes, r, payload), or None when the
     block takes the per-stage route (under 1 MiB, a schedule the device
-    walker does not take, or a payload that is not smaller)."""
+    walker does not take, or a payload that is not smaller).
+
+    ``lz`` is copied to the card with ``non_blocking=True``: from the
+    API's page-locked ``"compress_lz"`` slot the copy runs asynchronously,
+    so an event recorded after it is waited on before returning, and the
+    next call on this thread cannot overwrite the slot while the copy
+    still reads it."""
     n = len(lz)
     if n < _DEVICE_MIN_BLOCK:
         return None
@@ -393,9 +453,12 @@ def compress_block_device(lz: np.ndarray, device):
     from .ops import wide_kernels
 
     r = wideaux_rate(n)
-    U, primary, aux = opsbwt.bwt_encode_wideaux_device(
-        torch.from_numpy(_as_c(lz)).to(device), r)
+    lz_d = torch.from_numpy(_as_c(lz)).to(device, non_blocking=True)
+    copied = _copied(device)
+    U, primary, aux = opsbwt.bwt_encode_wideaux_device(lz_d, r)
     payload = wide_kernels.device_encode_resident(U)
+    if copied is not None:
+        copied.synchronize()
     if payload is None:
         return None
     aux_np = aux.cpu().numpy().astype(np.int32)
@@ -403,10 +466,14 @@ def compress_block_device(lz: np.ndarray, device):
 
 
 def decompress_block_device(payload: bytes, index: int, indexes, r: int,
-                            n: int, device):
+                            n: int, device, out: np.ndarray | None = None):
     """Fused device decode: K3's or K4's block stays on the device and
-    feeds the wide-aux chase.  Returns the (pre-LZP) bytes as ndarray, or None when
-    the block takes the per-stage route."""
+    feeds the wide-aux chase.  Returns the (pre-LZP) bytes as ndarray, or
+    None when the block takes the per-stage route.  With ``out`` (``n``
+    bytes or more: the API's ``"decompress_lz"`` slot, page-locked on
+    CUDA) the block is copied there with ``non_blocking=True`` and the
+    copy waited for, and a view of ``out`` is returned; without it, a
+    fresh host tensor."""
     if n < _DEVICE_MIN_BLOCK:
         return None
     from .ops import bwt as opsbwt
@@ -416,5 +483,11 @@ def decompress_block_device(payload: bytes, index: int, indexes, r: int,
     if U is None:
         return None
     aux = torch.from_numpy(np.ascontiguousarray(indexes, dtype=np.int32))
-    out = opsbwt.unbwt_wideaux(U, index, aux.to(device), r, n)
-    return out.cpu().numpy()
+    block = opsbwt.unbwt_wideaux(U, index, aux.to(device), r, n)
+    if out is None or len(out) < n:
+        return block.cpu().numpy()
+    torch.from_numpy(out[:n]).copy_(block, non_blocking=True)
+    copied = _copied(device)
+    if copied is not None:
+        copied.synchronize()
+    return out[:n]

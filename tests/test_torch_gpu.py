@@ -6,7 +6,8 @@ CLI: -m9 -e4 -G through K1, K2 and K3, and the -G default config through
 the device BWT, the sample-sort ST step on a mesh that lists cuda:0
 twice, the DC3 device BWT, the list-ranking inverse BWT (on cuda against
 its CPU run at 4 MiB, and through the API under TBSC_ENGINE=ops) and the
-lockstep range coder against the serial reference; K8 (the wide-aux
+lockstep range coder against the serial reference; the host buffer
+pool's page-locked slots on the fused route; K8 (the wide-aux
 inverse BWT: its chase at any rate, its table kernel), K9 and K10 (the
 bit schedule) on its edge block, the hard blocks and their batch and tile
 edges, their launches on the fused route, and the v1 schedule
@@ -20,6 +21,8 @@ imports JAX, which a GPU machine need not have, so run them there with
 All comparisons are exact: the codec is lossless.
 """
 
+import threading
+
 import numpy as np
 import pytest
 import torch
@@ -32,6 +35,7 @@ from libbsc_tpu_torch.ops import wide as W
 from libbsc_tpu_torch.ops import wide_kernels as WK
 from libbsc_tpu_torch.ops import wide_schedule as WS
 from libbsc_tpu_torch.ops import stats_kernels as S
+from libbsc_tpu_torch.utils import bufpool
 
 pytestmark = pytest.mark.gpu
 
@@ -668,3 +672,55 @@ def test_v1_schedule_through_k9_k10_equals_native(cuda, monkeypatch):
     assert np.array_equal(dev[0].cpu().numpy(), host[0])
     assert dev[2:] == host[2:]
     assert WS.LAUNCHES == {"sched_events": 2, "sched_planes": 2}
+
+
+_FUSED = dict(block_sorter=C.BLOCKSORTER_BWT_WIDEAUX, coder=C.CODER_QLFC_WIDE)
+
+
+def _pinned_slots() -> dict:
+    return {k[0]: v for k, v in bufpool.slots().items() if k[1]}
+
+
+def test_fused_route_slots_are_page_locked_and_stay(cuda, monkeypatch):
+    """-m9 -e4 -G on a 4 MiB block: the "compress_lz" slot (the H2D's
+    source) and decompress's "decompress_lz" slot (the D2H's destination)
+    are page-locked and keep their addresses across three warm calls, each
+    of which gives the same archive and the same bytes."""
+    monkeypatch.setenv("TBSC_WIDE_LANES", "1024")
+    data = _text(4 << 20, 404)
+    P.init(C.FEATURE_FASTMODE | C.FEATURE_CUDA, device=cuda)
+    WK.reset_launches()
+    blob = P.compress(data, **_FUSED)
+    assert P.decompress(blob) == data
+    assert WK.LAUNCHES["wide_model"] == 1 and WK.LAUNCHES["wide_decode"] == 1
+    slots = _pinned_slots()
+    assert sorted(slots) == ["compress_lz", "decompress_lz"]
+    assert all(torch.from_numpy(v).is_pinned() for v in slots.values())
+    addrs = {k: v.ctypes.data for k, v in slots.items()}
+    for _ in range(3):
+        assert P.compress(data, **_FUSED) == blob
+        assert P.decompress(blob) == data
+        assert {k: v.ctypes.data for k, v in _pinned_slots().items()} \
+            == addrs
+
+
+def test_decompress_batch_keeps_fresh_buffers_on_cuda(cuda, monkeypatch):
+    """decompress_batch on the card returns each block and draws no slot
+    from the pool (it holds several blocks at once)."""
+    monkeypatch.setenv("TBSC_WIDE_LANES", "1024")
+    blocks = [_text(3 << 19, 77), _runs(200_000, 78), _text(300_000, 79)]
+    P.init(C.FEATURE_FASTMODE | C.FEATURE_CUDA, device=cuda)
+    blobs = [P.compress(blocks[0], **_FUSED), P.compress(blocks[1]),
+             P.compress(blocks[2], block_sorter=C.BLOCKSORTER_ST5)]
+    box = {}
+
+    def run():
+        box["out"] = P.decompress_batch(blobs)
+        box["slots"] = bufpool.slots()
+
+    th = threading.Thread(target=run)
+    th.start()
+    th.join(timeout=300)
+    assert not th.is_alive()
+    assert box["out"] == blocks and box["slots"] == {}
+    assert [P.decompress(b) for b in blobs] == blocks

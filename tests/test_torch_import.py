@@ -25,7 +25,7 @@ def test_import_loads_no_jax_and_no_jax_package():
         "from libbsc_tpu_torch.fallback import bwt, lzp, qlfc, st\n"
         "from libbsc_tpu_torch.format import subblocks\n"
         "from libbsc_tpu_torch.parallel import distributed\n"
-        "from libbsc_tpu_torch.utils import adler32, trace\n"
+        "from libbsc_tpu_torch.utils import adler32, bufpool, trace\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'libbsc_tpu' or "
         "m.startswith('libbsc_tpu.'))\n"

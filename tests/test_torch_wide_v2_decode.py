@@ -70,8 +70,8 @@ def test_v2_archive_on_the_fused_route(monkeypatch):
     fused = []
     spy = engine.decompress_block_device
 
-    def recording(*args):
-        out = spy(*args)
+    def recording(*args, **kw):
+        out = spy(*args, **kw)
         fused.append(out is not None)
         return out
 
