@@ -41,15 +41,26 @@ Phases, one line or more each:
      bucket ends) and its other designs, each table and chase timed and
      each chase's latency floor (tools/chase_variants.py); K9's clock64()
      split and its longest lane alone (tools/schedule_step_split.py);
+     K11-K14 (the forward BWT's sort: bootstrap keys, round keys, group
+     heads and ranks, extraction) held to their plain versions call by
+     call (held_to_plain) through the wide-aux BWT and DC3 of the 4 MiB
+     block, all-zero and periodic 4 MiB blocks, the high-entropy hard
+     block and the text at SORT_SIZES (2, 3, 17, 255, 4,096 and K13's and
+     K11's tiles +- 1), exactly, each BWT also against the native one;
+     then each timed with CUDA events on the 25 MiB block's own inputs
+     beside its plain version, K13 also beside torch.cummax of its rows
+     (library_ms) and K12 and K13 in the compact round's form;
   3. the v3 main path: the 25 MiB block through api.compress and
      api.decompress with -m9 -e4 -G, launch counters set to 0 just before
      and read just after (K8-K10's also between the two).  K1, K2 and K3
      must have launched and K4 and K5 not, K9 and K10 once in the encode
-     and K8 once in the decode; the archive must equal the one composed
+     and K8 once in the decode, K11-K14 in the encode (SORT_ENCODE at
+     least) and not in the decode; the archive must equal the one composed
      from the stages and the native wide encode; both the device decode
      and the native host decode must restore the input.  Then each stage
      of the fused route is timed once, stage by stage, for the breakdown
-     (the schedule split into lanes, stats, events (K9), planes (K10) and
+     (the BWT split into boot, rounds, with each round's unresolved
+     count, and extract; the schedule split into lanes, stats, events (K9), planes (K10) and
      transpose; the inverse BWT into psi, K8's table: the sort, the
      bucket ends and the table kernel, and chase, K8's chase); the archive those stages compose must equal the main path's, so
      the breakdown cannot drift from the code it times.  After the first
@@ -78,7 +89,8 @@ Phases, one line or more each:
      sorter="bwt" and with sorter="st", k=5: U and the primary must equal
      the native tbsc_bwt_encode, ops/bwt.bwt_encode's aux the native aux
      indexes, the ST output and index the native tbsc_st_encode, the
-     histograms torch.bincount; K6 must launch once a block in each step.
+     histograms torch.bincount; K6 must launch once a block in each step,
+     K11, K13 and K14 at least once a block in the bwt step.
      The ST outputs, coded by the native QLFC static coder and framed with
      no aux indexes, must come back through api.decompress.  K7's
      adler32_device of each device-resident block must equal the host
@@ -99,8 +111,9 @@ Phases, one line or more each:
      engine.DEVICE_ROUTES must show that the farm's device workers sorted
      blocks on the card (the farm hands each block to whichever worker
      takes it first, so the host worker may take a 25 MiB block: the
-     count is printed); then the device BWT route (counted) and the host
-     BWT on one 25 MiB block, equal and each timed; (c)
+     count is printed; K11, K13 and K14 at least once a block sorted on
+     the card); then the device BWT route (counted, through K11-K14) and
+     the host BWT on one 25 MiB block, equal and each timed; (c)
      one subprocess each of `python3 -m libbsc_tpu_torch.cli e IN OUT -m9
      -e4 -G` and `d OUT R -G`: both must exit 0 and R must equal IN.
      Prints each file MB/s with the card's name and power limit.
@@ -121,7 +134,8 @@ Phases, one line or more each:
      TBSC_BWT_DEVICE=1, by prefix quadrupling and with TBSC_BWT=dc3 by
      DC3, in turns (prefix, dc3, dc3, prefix), each equal to the native
      BWT, timed, with its peak device memory; DEVICE_ROUTES must count
-     both; both variables are restored.
+     both, and each call must launch K11-K14; both variables are
+     restored.
  10. the last modules (each variable and engine._force it sets is
      restored): (a) TBSC_ENGINE=ops (engine._force) on the 25 MiB block,
      default config, no FEATURE_CUDA: DEVICE_ROUTES must count one
@@ -157,7 +171,7 @@ text at offset 3, each of 25 MiB and held against its plain version.
 
 The script prints each phase's wall seconds (the run-time line), a JSON
 line of per-kernel numbers (launches from the main path that runs the
-kernel: K1-K3 and K8-K10 phase 3, K4 and K5 phase 4, K6 and K7 phase 6;
+kernel: K1-K3 and K8-K14 phase 3, K4 and K5 phase 4, K6 and K7 phase 6;
 cli_launches of K1-K3 from phase 8's -m9 -e4 -G encode and decode,
 counted from several threads, so read as launched or not; farm_launches
 of K1-K3 from phase 9's farm: the one-process encode, the two ranks'
@@ -180,10 +194,16 @@ load (8 bytes each, one for two steps), the ends and the start rows once
 and writes the block (operations: 8 search steps a row searched); what
 bounds the chase is the latency of its r / 2 dependent loads a chain,
 which no bytes count shows: latency_floor_ms is one chain launched alone.
+K11 reads the block and writes two int64 keys a row (17 bytes a row),
+K12 reads the ranks and writes the keys (24), K13 reads the sorted high
+keys, the low keys and both sorts' indices and writes the ranks and the
+mask (41), K14 reads the block and the ranks and writes U (10, and the
+aux indexes).
 """
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import os
@@ -220,6 +240,11 @@ REPLACES = {  # kernel -> the Pallas kernel it replaces
     "unbwt_chase": "libbsc_tpu/ops/bwt.py:870",
     "sched_events": "libbsc_tpu/ops/wide_schedule.py:262",
     "sched_planes": "libbsc_tpu/ops/wide_schedule.py:371",
+    # K11-K14 replace the XLA suffix sort and extraction of the forward BWT
+    "bwt_boot_keys": "libbsc_tpu/ops/bwt.py:74",
+    "bwt_round_keys": "libbsc_tpu/ops/bwt.py:153",
+    "bwt_heads": "libbsc_tpu/ops/bwt.py:120",
+    "bwt_extract": "libbsc_tpu/ops/bwt.py:754",
 }
 V3 = ("wide_model", "wide_rans", "wide_decode")
 V2 = ("wide_rc_encode", "wide_decode_v2")
@@ -232,7 +257,17 @@ SCAN_DECODE = {"unbwt_table": 1, "unbwt_chase": 1, "sched_events": 0,
                "sched_planes": 0}
 SOURCE = {"wide_decode_v2": "wide_decode",  # K4 is K3's template twin
           "unbwt_table": "unbwt_chase",
-          "sched_events": "wide_schedule", "sched_planes": "wide_schedule"}
+          "sched_events": "wide_schedule", "sched_planes": "wide_schedule",
+          "bwt_boot_keys": "bwt_sort", "bwt_round_keys": "bwt_sort",
+          "bwt_heads": "bwt_sort", "bwt_extract": "bwt_sort"}
+# K11-K14, the forward BWT's sort, and their fewest launches in a -m9 -e4
+# -G encode (the bootstrap, a round at least, and the extraction)
+SORT = ("bwt_boot_keys", "bwt_round_keys", "bwt_heads", "bwt_extract")
+SORT_ENCODE = {"bwt_boot_keys": 1, "bwt_round_keys": 1, "bwt_heads": 2,
+               "bwt_extract": 1}
+# phase 2's block sizes for K11-K14: K13's tile is 1,024 rows, K11's block
+# 2,048
+SORT_SIZES = (2, 3, 17, 255, 4096, 1023, 1025, 2047, 2049)
 
 
 def make_corpus(n_bytes: int) -> bytes:
@@ -764,10 +799,10 @@ def main_path(data: bytes, features: int, composed: bytes, device,
     WK.reset_launches()
     reset_scan_launches()
     archive, t_enc = timed(lambda: P.compress(data, **kw))
-    scan_enc = scan_launches()
+    scan_enc, sort_enc = scan_launches(), sort_launches()
     reset_scan_launches()
     back, t_dec = timed(lambda: P.decompress(archive))
-    scan_dec = scan_launches()
+    scan_dec, sort_dec = scan_launches(), sort_launches()
     launches = dict(WK.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     if back != data:
@@ -782,6 +817,12 @@ def main_path(data: bytes, features: int, composed: bytes, device,
         fail(f"{coder}: K8-K10 did not launch once each where they run: "
              f"encode {scan_enc}, decode {scan_dec}")
     launches.update({k: scan_enc[k] + scan_dec[k] for k in SCAN})
+    if any(sort_enc[k] < SORT_ENCODE[k] for k in SORT) or \
+            any(sort_dec.values()):
+        fail(f"{coder}: K11-K14 did not launch in the encode ({SORT_ENCODE}"
+             f" at least), or launched in the decode: encode {sort_enc}, "
+             f"decode {sort_dec}")
+    launches.update(sort_enc)
     if archive != composed:
         fail(f"{coder}: the archive differs from the one composed from the "
              "stages")
@@ -948,8 +989,16 @@ def breakdown(data: bytes, features: int, archive: bytes, device) -> dict:
         lz = np.frombuffer(data, np.uint8).copy()
     r = engine.wideaux_rate(len(lz))
     lz_d = stage("h2d", lambda: torch.from_numpy(lz).to(device))
-    U, primary, aux = stage("bwt", lambda: bwt.bwt_encode_wideaux_device(
-        lz_d, r))
+    n = len(lz)
+    left = []  # each round's unresolved count
+    rank, mask, cnt = stage("boot", lambda: (lambda t: (t[0], t[1], int(
+        t[2])))(bwt._rank_pairs(*bwt.boot_keys(lz_d))))
+    rank = stage("rounds", lambda: bwt._refine(rank, mask, cnt,
+                                               bwt._BOOT_DEPTH, n, left))
+    del mask
+    U, primary, aux = stage("extract", lambda: bwt.extract(lz_d, rank, r))
+    ms["bwt"] = ms["boot"] + ms["rounds"] + ms["extract"]
+    del rank
     prep = schedule_stages(U, stage)
     ms["schedule"] = sum(ms[k] for k in ("lanes", "stats", "events",
                                          "planes", "transpose"))
@@ -978,7 +1027,9 @@ def breakdown(data: bytes, features: int, archive: bytes, device) -> dict:
     if out.tobytes() != data:
         fail("the stage-by-stage round trip did not restore the input")
     print("phase 3 stages (ms): " + ", ".join(
-        f"{k} {v:.1f}" for k, v in ms.items()), flush=True)
+        f"{k} {v:.1f}" for k, v in ms.items())
+        + f"; the bootstrap left {cnt} unresolved, the rounds {left}",
+        flush=True)
     return ms
 
 
@@ -1097,7 +1148,15 @@ def scan_launches() -> dict:
     from libbsc_tpu_torch.ops import bwt
     from libbsc_tpu_torch.ops import wide_schedule as WS
 
-    return {**bwt.LAUNCHES, **WS.LAUNCHES}
+    return {k: v for k, v in {**bwt.LAUNCHES, **WS.LAUNCHES}.items()
+            if k in SCAN}
+
+
+def sort_launches() -> dict:
+    """K11-K14's launch counts."""
+    from libbsc_tpu_torch.ops import bwt
+
+    return {k: bwt.LAUNCHES[k] for k in SORT}
 
 
 def reset_scan_launches() -> None:
@@ -1235,6 +1294,196 @@ def check_scan_all(st: dict, text: bytes, device) -> dict:
         errs.append(check_scan(f"hard {case}", u, sizes, device))
     return {name: {"max_abs_err": max(e.get(name, 0) for e in errs)}
             for name in SCAN}
+
+
+@contextlib.contextmanager
+def held_to_plain(err: dict):
+    """Within the block, every call of K11-K14's wrappers (ops/bwt's
+    boot_keys, round_keys, heads_full, heads_compact and extract) also
+    runs its plain version on the same inputs (heads_compact's on a copy
+    of the ranks it updates), and err[kernel] gets the largest absolute
+    difference of any output."""
+    from libbsc_tpu_torch.ops import bwt
+
+    names = {"boot_keys": "bwt_boot_keys", "round_keys": "bwt_round_keys",
+             "heads_full": "bwt_heads", "heads_compact": "bwt_heads",
+             "extract": "bwt_extract"}
+    saved = {f: getattr(bwt, f) for f in names}
+
+    def held(f):
+        plain = getattr(bwt, f + "_plain")
+
+        def call(*args, **kw):
+            if f == "heads_compact":
+                rank_p = args[5].clone()
+                still, cnt = out = saved[f](*args)
+                still_p, cnt_p = plain(*args[:5], rank_p)
+                e = max_err((args[5], still[:int(cnt)], cnt),
+                            (rank_p, still_p[:int(cnt_p)], cnt_p))
+            else:
+                out = saved[f](*args, **kw)
+                e = max_err(out, plain(*args, **kw))
+            err[names[f]] = max(err[names[f]], e)
+            return out
+        return call
+
+    for f in names:
+        setattr(bwt, f, held(f))
+    try:
+        yield
+    finally:
+        for f, fn in saved.items():
+            setattr(bwt, f, fn)
+
+
+def check_sort(case: str, data: np.ndarray, device) -> dict:
+    """Phase 2 check of K11-K14 on one block: the wide-aux BWT (prefix
+    quadrupling) and, from 64 bytes, the DC3 BWT on the card, each kernel
+    call held to its plain version on the same inputs (held_to_plain),
+    exactly; U, the primary and the aux indexes equal to the native
+    tbsc_bwt_encode_rate's at the wide-aux rate, and DC3's to the native
+    tbsc_bwt_encode's.  K11, K13 and K14 must launch.  Returns name ->
+    max_abs_err (0, or the script fails)."""
+    import torch
+
+    from libbsc_tpu_torch import engine, native
+    from libbsc_tpu_torch.ops import bwt
+
+    n = len(data)
+    d = torch.from_numpy(np.array(data, np.uint8)).to(device)
+    r = engine.wideaux_rate(n)
+    err = dict.fromkeys(SORT, 0)
+    before = sort_launches()
+    with held_to_plain(err):
+        U, primary, aux = bwt.bwt_encode_wideaux_device(d, r)
+        dc3 = bwt.bwt_encode_dc3(d) if n >= 64 else None
+    launched = {k: v - before[k] for k, v in sort_launches().items()}
+    ref = np.array(data, np.uint8)
+    k = (n - 1) // r
+    idx = np.zeros(max(k, 1), np.int32)
+    p = native.load().tbsc_bwt_encode_rate(native.u8p(ref), n, r,
+                                           native.i32p(idx))
+    if U.cpu().numpy().tobytes() != ref.tobytes() or int(primary) != p \
+            or not np.array_equal(aux.cpu().numpy(), idx[:k]):
+        fail(f"K11-K14: the {case} block's wide-aux BWT differs from the "
+             "native tbsc_bwt_encode_rate")
+    if dc3 is not None:
+        ref = np.array(data, np.uint8)
+        p, ni, idx = engine.bwt_encode(ref, 0)
+        if dc3[0].cpu().numpy().tobytes() != ref.tobytes() or \
+                int(dc3[1]) != p or \
+                not np.array_equal(dc3[2].cpu().numpy(), idx[:ni]):
+            fail(f"K11-K14: the {case} block's DC3 BWT differs from the "
+                 "native tbsc_bwt_encode")
+    for name, e in err.items():
+        if e:
+            fail(f"{name} differs from its plain version by {e} on the "
+                 f"{case} block")
+    if min(launched[k] for k in SORT if k != "bwt_round_keys") == 0:
+        fail(f"K11-K14 did not launch on the {case} block: {launched}")
+    print(f"phase 2 check {case}: K11-K14 equal to their plain versions, "
+          f"the BWT to the native one{' (and DC3)' if dc3 else ''}; {n} "
+          f"bytes, rate {r}, launches {launched}", flush=True)
+    return err
+
+
+def periodic_block(n: int) -> bytes:
+    return (b"abcd" * (n // 4 + 1))[:n]
+
+
+def check_sort_all(st: dict, text: bytes, device) -> dict:
+    """check_sort on the 4 MiB block (its LZP output, as the main path
+    sorts it), an all-zero and a periodic 4 MiB block, the high-entropy
+    hard block and the text at SORT_SIZES."""
+    blocks = {"4 MiB": st["lz"], "zeros": bytes(PLAIN_BLOCK),
+              "periodic": periodic_block(PLAIN_BLOCK),
+              "high-entropy": hard_blocks(text)["random"][0]}
+    blocks.update({f"{n} bytes": text[:n] for n in SORT_SIZES})
+    t0 = time.perf_counter()
+    errs = [check_sort(case, np.frombuffer(b, np.uint8), device)
+            for case, b in blocks.items()]
+    print(f"phase 2 check: K11-K14 on {len(blocks)} blocks in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return {name: {"max_abs_err": max(e[name] for e in errs)}
+            for name in SORT}
+
+
+def time_sort(st: dict, device) -> list:
+    """Phase 2 time of K11-K14 with CUDA events on the 25 MiB block's own
+    inputs (the main path's: the block as its LZP leaves it, the
+    bootstrap's sorted keys, its ranks, the final ranks), each held to its
+    plain version there and beside it (timed once); K13 beside
+    torch.cummax of its rows' head positions (library_ms: the call the
+    plain version makes, alone).  K12 and K13 also in the compact round's
+    form, on that round's rows."""
+    import torch
+
+    from libbsc_tpu_torch.ops import bwt
+
+    d = torch.from_numpy(np.array(st["lz"], np.uint8)).to(device)
+    n, r = int(d.shape[0]), st["r"]
+    k0 = bwt._BOOT_DEPTH
+    k_hi, k_lo = bwt.boot_keys(d)
+    hi_s, o1, o2 = bwt._sort_pairs(k_hi, k_lo)
+    del k_hi
+    rank, _, cnt = bwt.heads_full(hi_s, k_lo, o1, o2)
+    where = torch.where(bwt._heads(hi_s, k_lo[o1[o2]]),
+                        torch.arange(n, device=device), -1)
+    full = bwt._rank_pairs(*bwt.round_keys(rank, k0))
+    uidx = torch.nonzero(full[1])[:, 0]
+    c_a, c_lo = bwt.round_keys(full[0], 4 * k0, uidx)
+    c_hi, c_o1, c_o2 = bwt._sort_pairs(c_a, c_lo)
+    c_rank = full[0].clone()
+    del c_a
+    final = bwt.suffix_ranks(d)
+    m = int(uidx.shape[0])
+    n_aux = (n - 1) // r
+    runs = {  # name -> (kernel, plain, bytes, library call)
+        "bwt_boot_keys": (lambda: bwt.boot_keys(d),
+                          lambda: bwt.boot_keys_plain(d), 17 * n, None),
+        "bwt_round_keys": (lambda: bwt.round_keys(rank, k0),
+                           lambda: bwt.round_keys_plain(rank, k0), 24 * n,
+                           None),
+        # the sorted high keys, the low keys, both sorts' indices read;
+        # rank and mask written
+        "bwt_heads": (lambda: bwt.heads_full(hi_s, k_lo, o1, o2),
+                      lambda: bwt.heads_full_plain(hi_s, k_lo, o1, o2),
+                      41 * n, lambda: torch.cummax(where, 0)),
+        "bwt_extract": (lambda: bwt.extract(d, final, r),
+                        lambda: bwt.extract_plain(d, final, r),
+                        10 * n + 4 * n_aux + 8, None),
+    }
+    compact_calls = {
+        "bwt_round_keys": lambda: bwt.round_keys(full[0], 4 * k0, uidx),
+        "bwt_heads": lambda: bwt.heads_compact(c_hi, c_lo, c_o1, c_o2,
+                                               uidx, c_rank)}
+    rows = []
+    for name, (kernel, plain, nbytes, library) in runs.items():
+        ms = cuda_ms(kernel, TIMED_LAUNCHES)
+        out_p, plain_ms = timed(plain)
+        if max_err(kernel(), out_p):
+            fail(f"{name} differs from its plain version on the 25 MiB "
+                 "block")
+        del out_p
+        b, by = bound_ms(nbytes, 0)
+        lib_ms = cuda_ms(library, TIMED_LAUNCHES) if library else None
+        row = {"name": name, "route": "cuda",
+               "source": f"libbsc_tpu_torch/csrc/{SOURCE[name]}.cu",
+               "replaces": REPLACES[name], "ms": ms, "plain_ms": plain_ms,
+               "plain_at_bytes": n, "bound_ms": b, "bound_by": by,
+               "library_ms": lib_ms, "rows": n}
+        extra = f", torch.cummax {lib_ms:.3f} ms" if lib_ms else ""
+        if name in compact_calls and m:
+            row["compact_ms"] = cuda_ms(compact_calls[name], TIMED_LAUNCHES)
+            row["compact_rows"] = m
+            extra += (f"; its compact form on the compact round's {m} rows "
+                      f"{row['compact_ms']:.4f} ms")
+        rows.append(row)
+        print(f"phase 2 time {name}: {ms:.4f} ms (bound {b:.4f} ms by {by})"
+              f", plain {plain_ms:.1f} ms{extra}; {n} rows, the bootstrap "
+              f"left {int(cnt)} unresolved, the full round {int(full[2])}",
+              flush=True)
+    return rows
 
 
 def chase_latency(chase, heads, r: int, n: int, lz: np.ndarray) -> float:
@@ -1412,8 +1661,15 @@ def transform_step(blocks: list, features: int, device) -> dict:
     st_out = None
     for sorter in ("bwt", "st"):
         before = S.LAUNCHES["byte_hist"]
+        sort_before = sort_launches()
         (out, idx, hist), ms = timed(
             lambda: make_transform_step(mesh, sorter=sorter, k=5)(grid))
+        sorted_by = {k: v - sort_before[k]
+                     for k, v in sort_launches().items()}
+        if sorter == "bwt" and min(sorted_by[k] for k in SORT if k !=
+                                   "bwt_round_keys") < len(blocks):
+            fail(f"step bwt: K11, K13 and K14 did not launch for each "
+                 f"block: {sorted_by}")
         if S.LAUNCHES["byte_hist"] - before != len(blocks):
             fail(f"step {sorter}: K6 launched "
                  f"{S.LAUNCHES['byte_hist'] - before} times for "
@@ -1439,7 +1695,9 @@ def transform_step(blocks: list, features: int, device) -> dict:
             st_out, st_idx = out.numpy(), idx
         print(f"phase 6 step {sorter}: {len(blocks)} blocks of "
               f"{len(blocks[0])} bytes, {ms:.1f} ms, {mb / ms * 1e3:.2f} "
-              "MB/s, equal to the native sorter", flush=True)
+              "MB/s, equal to the native sorter"
+              + (f"; K11-K14 launches {sorted_by}" if sorter == "bwt"
+                 else ""), flush=True)
     mode = pack_mode(C.BLOCKSORTER_ST5, C.CODER_QLFC_STATIC, 0, 0)
     P.init(features, device=device)
     for b, raw in enumerate(blocks):
@@ -1629,9 +1887,16 @@ def cli_path(data: bytes, features: int, device, repo: str) -> dict:
                                                         quiet=True))
         host = _entries(arch)
         before = engine.DEVICE_ROUTES["bwt_encode"]
+        sort_before = sort_launches()
         _, t_dev_enc = timed(lambda: cli.compress_file(inp, arch, args("-G"),
                                                        quiet=True))
         sorted_on_card = engine.DEVICE_ROUTES["bwt_encode"] - before
+        farm_sort = {k: v - sort_before[k]
+                     for k, v in sort_launches().items()}
+        if min(farm_sort[k] for k in SORT if k != "bwt_round_keys") < \
+                sorted_on_card:
+            fail(f"cli -G: K11, K13 and K14 did not launch for each of the "
+                 f"{sorted_on_card} blocks sorted on the card: {farm_sort}")
         if os.environ.get("TBSC_BWT_DEVICE") is not None:
             fail("cli -G did not restore TBSC_BWT_DEVICE")
         if _entries(arch) != host:
@@ -1651,13 +1916,19 @@ def cli_path(data: bytes, features: int, device, repo: str) -> dict:
         lz = np.frombuffer(data[:BLOCK], np.uint8) if lz is None else lz
         os.environ["TBSC_BWT_DEVICE"] = "1"
         before = engine.DEVICE_ROUTES["bwt_encode"]
+        sort_before = sort_launches()
         try:
             dev_bwt, t_dev_bwt = timed(lambda: engine.bwt_encode(
                 lz.copy(), features, device))
         finally:
             del os.environ["TBSC_BWT_DEVICE"]
-        if engine.DEVICE_ROUTES["bwt_encode"] != before + 1:
-            fail("the 25 MiB block did not take the device BWT route")
+        block_sort = {k: v - sort_before[k]
+                      for k, v in sort_launches().items()}
+        if engine.DEVICE_ROUTES["bwt_encode"] != before + 1 or \
+                block_sort["bwt_boot_keys"] != 1 or \
+                block_sort["bwt_extract"] != 1:
+            fail("the 25 MiB block did not take the device BWT route "
+                 f"through K11-K14: {block_sort}")
         host_bwt, t_host_bwt = timed(lambda: engine.bwt_encode(
             lz.copy(), features))
         if dev_bwt[:2] != host_bwt[:2] or not np.array_equal(
@@ -1670,7 +1941,8 @@ def cli_path(data: bytes, features: int, device, repo: str) -> dict:
               f"MB/s without ({t_host_enc:.1f} ms); decode -G "
               f"{mb / t_def_dec * 1e3:.2f} MB/s; bwt stage on a "
               f"{len(lz)}-byte block: device {t_dev_bwt:.1f} ms, host "
-              f"{t_host_bwt:.1f} ms; {card}", flush=True)
+              f"{t_host_bwt:.1f} ms; K11-K14 launches: the farm "
+              f"{farm_sort}, the block {block_sort}; {card}", flush=True)
 
         # (c) the entry point itself, one process each way
         env = dict(os.environ, PYTHONPATH=repo)
@@ -1892,7 +2164,7 @@ def dc3(data: bytes, features: int, device) -> None:
     primary, ni, aux = engine.bwt_encode(ref, features)
     saved = {v: os.environ.get(v) for v in ("TBSC_BWT_DEVICE", "TBSC_BWT")}
     ms = {"bwt_encode": [], "bwt_encode_dc3": []}
-    peak = {}
+    peak, sorted_by = {}, {}
     before = dict(engine.DEVICE_ROUTES)
     try:
         os.environ["TBSC_BWT_DEVICE"] = "1"
@@ -1905,8 +2177,14 @@ def dc3(data: bytes, features: int, device) -> None:
             buf = lz.copy()
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
+            sort_before = sort_launches()
             got, t = timed(lambda: engine.bwt_encode(buf, features, device))
             peak[route] = torch.cuda.max_memory_allocated()
+            sorted_by[route] = {k: v - sort_before[k]
+                                for k, v in sort_launches().items()}
+            if min(sorted_by[route].values()) == 0:
+                fail(f"{route}: K11-K14 did not all launch: "
+                     f"{sorted_by[route]}")
             ms[route].append(t)
             if got[:2] != (primary, ni) or not np.array_equal(
                     got[2][:ni], aux[:ni]) or not np.array_equal(buf, ref):
@@ -1925,8 +2203,8 @@ def dc3(data: bytes, features: int, device) -> None:
           f"{', '.join(f'{t:.1f}' for t in ms['bwt_encode'])} ms, peak "
           f"{peak['bwt_encode']} B; dc3 "
           f"{', '.join(f'{t:.1f}' for t in ms['bwt_encode_dc3'])} ms, peak "
-          f"{peak['bwt_encode_dc3']} B; routes counted {counted}; {smi()}",
-          flush=True)
+          f"{peak['bwt_encode_dc3']} B; routes counted {counted}; K11-K14 "
+          f"launches {sorted_by}; {smi()}", flush=True)
 
 
 # The CLI as __main__ under runpy, then whether it loaded the native
@@ -2356,6 +2634,7 @@ def main() -> int:
     st = stages(data[:PLAIN_BLOCK], features, device)
     checked = check_kernels(st, device)
     checked.update(check_scan_all(st, data, device))
+    checked.update(check_sort_all(st, data, device))
     del st
     check_hard_decode(data, device)
     check_hard_encode(data, device)
@@ -2363,6 +2642,7 @@ def main() -> int:
     st = stages(data, features, device)
     rows = time_kernels(st, device, clock_mhz)
     scan_rows = time_scan(st, device, clock_mhz)
+    sort_rows = time_sort(st, device)
     stats_rows = time_stats(data, device)
     lap("2")
     composed = st["archive"]
@@ -2413,9 +2693,9 @@ def main() -> int:
         if r["name"] in cli_launches:
             r["cli_launches"] = cli_launches[r["name"]]
             r["farm_launches"] = farm_launches[r["name"]]
-    for r in stats_rows + scan_rows:
+    for r in stats_rows + scan_rows + sort_rows:
         r.update(checked[r["name"]], launches=launches[r["name"]])
-    print(json.dumps({"kernels": rows + stats_rows + scan_rows}))
+    print(json.dumps({"kernels": rows + stats_rows + scan_rows + sort_rows}))
     print(smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

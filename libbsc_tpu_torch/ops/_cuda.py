@@ -110,6 +110,14 @@ _SIGNATURES = {
                      [_VP] * 5 + [_I] + [_VP] * 6),
     "sched_planes": ("wide_schedule", "sched_planes_launch",
                      [_VP] * 5 + [_I, _L, _VP, _VP]),
+    "bwt_boot_keys": ("bwt_sort", "bwt_boot_keys_launch",
+                      [_VP, _L, _L, _I, _VP, _VP, _VP]),
+    "bwt_round_keys": ("bwt_sort", "bwt_round_keys_launch",
+                       [_VP, _L, _L, _VP, _L, _VP, _VP, _VP]),
+    "bwt_heads": ("bwt_sort", "bwt_heads_launch",
+                  [_I] + [_VP] * 5 + [_L] + [_VP] * 5),
+    "bwt_extract": ("bwt_sort", "bwt_extract_launch",
+                    [_VP, _VP, _L, _L, _L] + [_VP] * 4),
 }
 
 

@@ -12,7 +12,12 @@ position of its first member), so a round can re-rank one unresolved
 group in place as ``group start + offset``; once the unresolved count is
 under n/4, rounds run over the unresolved positions only.  torch has no
 multi-key sort: two stable sorts of packed int64 keys (low pair first)
-give the lexicographic order.
+give the lexicographic order.  On CUDA the steps around the sorts are
+hand kernels (``csrc/bwt_sort.cu``): K11 builds the bootstrap's keys, K12
+a round's, K13 finds the group heads and their starts by a one-pass scan
+with decoupled look-back and writes the ranks, and K14 extracts U, the
+primary and the aux indexes from the final ranks; on the CPU each runs
+its plain torch version (``*_plain``).
 
 Stream convention (the reference's bwt/bwt.cpp:178-230, the native
 runtime's tbsc_bwt_encode_rate):
@@ -42,7 +47,11 @@ from . import _cuda
 _BOOT_DEPTH = 15
 _TWO32 = 1 << 32
 
-LAUNCHES = {"unbwt_table": 0, "unbwt_chase": 0}
+_MAX_N = 1 << 31     # the int64 keys hold a rank in 32 bits
+_HEADS_TILE = 1024   # K13's rows a tile (kTile in csrc/bwt_sort.cu)
+
+LAUNCHES = {"bwt_boot_keys": 0, "bwt_round_keys": 0, "bwt_heads": 0,
+            "bwt_extract": 0, "unbwt_table": 0, "unbwt_chase": 0}
 
 
 def reset_launches() -> None:
@@ -77,10 +86,18 @@ def _pair_key(hi: torch.Tensor, lo: torch.Tensor, hi_bias: int = 0):
     return (hi + hi_bias) * _TWO32 + lo
 
 
+def _sort_pairs(key_hi: torch.Tensor, key_lo: torch.Tensor):
+    """The rows sorted by (key_hi, key_lo), two stable sorts (low key
+    first): (key_hi sorted, the first sort's indices o1, the second's
+    o2); the sorted permutation is o1[o2]."""
+    o1 = torch.sort(key_lo, stable=True).indices
+    hi_s, o2 = torch.sort(key_hi[o1], stable=True)
+    return hi_s, o1, o2
+
+
 def _lex_order(key_hi: torch.Tensor, key_lo: torch.Tensor) -> torch.Tensor:
     """Stable permutation sorting by (key_hi, key_lo)."""
-    o1 = torch.sort(key_lo, stable=True).indices
-    o2 = torch.sort(key_hi[o1], stable=True).indices
+    _, o1, o2 = _sort_pairs(key_hi, key_lo)
     return o1[o2]
 
 
@@ -93,31 +110,6 @@ def _heads(*sorted_keys: torch.Tensor) -> torch.Tensor:
     for k in sorted_keys:
         heads[1:] |= k[1:] != k[:-1]
     return heads
-
-
-def _bootstrap(data: torch.Tensor):
-    """Depth-15 bootstrap: sort on bytes 0..14 and the remaining length.
-    Returns (rank, unresolved mask) in position order."""
-    n = data.shape[0]
-    idx = torch.arange(n, device=data.device)
-    d = data.long()
-
-    def pbyte(j: int) -> torch.Tensor:
-        return _shifted(d, j, 0)
-
-    words = []
-    for w in range(3):
-        acc = torch.zeros(n, dtype=torch.int64, device=data.device)
-        for j in range(4):
-            acc = (acc << 8) | pbyte(4 * w + j)
-        words.append(acc)
-    rem = torch.clamp(n - idx, 1, _BOOT_DEPTH)
-    w3 = (((pbyte(12) << 8 | pbyte(13)) << 8 | pbyte(14)) << 8) | rem
-    k_hi = _pair_key(words[0], words[1], -(1 << 31))
-    k_lo = _pair_key(words[2], w3, -(1 << 31))
-    pos_s = _lex_order(k_hi, k_lo)
-    heads = _heads(k_hi[pos_s], k_lo[pos_s])
-    return _rank_mask_to_position_order(heads, pos_s, n)
 
 
 def _rank_mask_to_position_order(heads, pos_s, n: int):
@@ -139,57 +131,250 @@ def _round_keys(r1, r2, r3, r4):
     return _pair_key(r1, r2 + 1), _pair_key(r3 + 1, r4 + 1)
 
 
-def _full_round4(rank: torch.Tensor, k: int, n: int):
-    """One quadrupling round over all n suffixes."""
-    key_a, key_b = _round_keys(rank, _shifted(rank, k, -1),
-                               _shifted(rank, 2 * k, -1),
-                               _shifted(rank, 3 * k, -1))
-    pos_s = _lex_order(key_a, key_b)
-    heads = _heads(key_a[pos_s], key_b[pos_s])
-    rank, mask = _rank_mask_to_position_order(heads, pos_s, n)
-    return rank, mask, int(mask.sum())
+# ---------------------------------------------------------------------------
+# The sort's kernels (csrc/bwt_sort.cu), each with its plain version
+# ---------------------------------------------------------------------------
+#
+# A round: K11 (the bootstrap) or K12 builds two int64 keys a row, two
+# stable torch.sort calls order the rows (_sort_pairs), and K13 turns the
+# sorted rows into group-start ranks: over all n positions (heads_full) or
+# over the unresolved ones (heads_compact).  K14 extracts the BWT from the
+# final ranks.  Each wrapper runs its plain version for a CPU tensor and
+# launches its kernel for a CUDA one (a failed build or launch raises).
 
 
-def _bucket_round_compact4(rank: torch.Tensor, uidx: torch.Tensor, k: int,
-                           n: int):
-    """One quadrupling round over the unresolved positions ``uidx`` only.
-    Sound because every member of an unresolved group is unresolved, so
-    the group's subgroup offsets are complete.  Updates ``rank`` in place;
-    returns the positions still unresolved."""
-    r1 = rank[uidx]
+def _vec(name: str, t: torch.Tensor, dtype) -> None:
+    if t.dtype != dtype or t.dim() != 1 or not t.is_contiguous() or \
+            t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: a contiguous 1-D {dtype} tensor on a CPU "
+                         "or CUDA device")
+
+
+def _same_device(name: str, *ts: torch.Tensor) -> None:
+    if len({t.device for t in ts}) != 1:
+        raise ValueError(f"{name}: every input on one device")
+
+
+def _launch(name: str, dev, *args) -> None:
+    with torch.cuda.device(dev):
+        rc = _cuda.launcher(name)(*args, _cuda.stream_handle(dev))
+    _cuda.check(name, rc)
+    LAUNCHES[name] += 1
+
+
+def boot_keys(data: torch.Tensor, sample: bool = False):
+    """K11: the depth-15 bootstrap's two int64 keys a row of u8[n] (bytes
+    0-11 of the suffix, then bytes 12-14 and the remaining length clamped
+    to [1, 15]; bytes past the end read 0), over every position, or with
+    ``sample`` over DC3's sample (row j is position 3 (j // 2) + j % 2 +
+    1).  Raises for n >= 2^31, past the int64 key layout."""
+    data = data.contiguous()
+    _vec("boot_keys", data, torch.uint8)
+    n = int(data.shape[0])
+    if n >= _MAX_N:
+        raise ValueError(f"a block of {n} bytes: the suffix sort takes "
+                         "fewer than 2^31")
+    if data.device.type == "cpu":
+        return boot_keys_plain(data, sample)
+    rows = n - (n + 2) // 3 if sample else n  # DC3's sample: p % 3 != 0
+    k_hi = torch.empty(rows, dtype=torch.int64, device=data.device)
+    k_lo = torch.empty_like(k_hi)
+    if rows:
+        _launch("bwt_boot_keys", data.device, data.data_ptr(), n, rows,
+                int(sample), k_hi.data_ptr(), k_lo.data_ptr())
+    return k_hi, k_lo
+
+
+def boot_keys_plain(data: torch.Tensor, sample: bool = False):
+    """K11's plain version."""
+    n = data.shape[0]
+    n3 = (n + 2) // 3
+    L = 3 * n3 if sample else n
+    d = torch.zeros(L, dtype=torch.int64, device=data.device)
+    d[:n] = data  # bytes past the end read 0
+
+    def pbyte(j: int) -> torch.Tensor:
+        return _shifted(d, j, 0)
+
+    def rows(a: torch.Tensor) -> torch.Tensor:
+        if not sample:
+            return a
+        return a.view(n3, 3)[:, 1:].reshape(2 * n3)[:n - n3]
+
+    words = []
+    for w in range(3):
+        acc = torch.zeros(L, dtype=torch.int64, device=data.device)
+        for j in range(4):
+            acc = (acc << 8) | pbyte(4 * w + j)
+        words.append(rows(acc))
+    rem = torch.clamp(n - torch.arange(L, device=data.device), 1,
+                      _BOOT_DEPTH)
+    words.append(rows((((pbyte(12) << 8 | pbyte(13)) << 8 | pbyte(14)) << 8)
+                      | rem))
+    return (_pair_key(words[0], words[1], -(1 << 31)),
+            _pair_key(words[2], words[3], -(1 << 31)))
+
+
+def round_keys(rank: torch.Tensor, k: int, uidx: torch.Tensor | None = None):
+    """K12: a round's two int64 keys from the position-order ``rank`` at
+    i, i + k, i + 2k, i + 3k (-1 past the end), for every position i or
+    for i in ``uidx``: (r(i) 2^32 + r(i+k) + 1, (r(i+2k) + 1) 2^32 +
+    r(i+3k) + 1)."""
+    _vec("round_keys", rank, torch.int64)
+    if uidx is not None:
+        _vec("round_keys", uidx, torch.int64)
+        _same_device("round_keys", rank, uidx)
+    if rank.device.type == "cpu":
+        return round_keys_plain(rank, k, uidx)
+    rows = int(rank.shape[0] if uidx is None else uidx.shape[0])
+    key_a = torch.empty(rows, dtype=torch.int64, device=rank.device)
+    key_b = torch.empty_like(key_a)
+    if rows:
+        _launch("bwt_round_keys", rank.device, rank.data_ptr(),
+                int(rank.shape[0]), k,
+                None if uidx is None else uidx.data_ptr(), rows,
+                key_a.data_ptr(), key_b.data_ptr())
+    return key_a, key_b
+
+
+def round_keys_plain(rank: torch.Tensor, k: int,
+                     uidx: torch.Tensor | None = None):
+    """K12's plain version."""
+    if uidx is None:
+        return _round_keys(rank, _shifted(rank, k, -1),
+                           _shifted(rank, 2 * k, -1),
+                           _shifted(rank, 3 * k, -1))
+    n = rank.shape[0]
 
     def cont(off):
         j = uidx + off
         return torch.where(j < n, rank[j.clamp(max=n - 1)], -1)
 
-    key_a, key_b = _round_keys(r1, cont(k), cont(2 * k), cont(3 * k))
-    perm = _lex_order(key_a, key_b)
+    return _round_keys(rank[uidx], cont(k), cont(2 * k), cont(3 * k))
+
+
+def _heads_inputs(name, hi_s, lo, o1, o2, *more) -> int:
+    for t in (hi_s, lo, o1, o2, *more):
+        _vec(name, t, torch.int64)
+    _same_device(name, hi_s, lo, o1, o2, *more)
+    m = int(hi_s.shape[0])
+    if not m == lo.shape[0] == o1.shape[0] == o2.shape[0]:
+        raise ValueError(f"{name}: the sorted keys, the low keys and both "
+                         "sorts' indices must have one length")
+    return m
+
+
+def _heads_scratch(m: int, dev) -> torch.Tensor:
+    """K13's zeroed scratch: two status words a tile, the tile counter,
+    the count (the last element)."""
+    return torch.zeros(2 * (-(-m // _HEADS_TILE)) + 2, dtype=torch.int64,
+                       device=dev)
+
+
+def heads_full(hi_s, lo, o1, o2):
+    """K13 over all n positions: from the second sort's values ``hi_s``
+    (the high keys sorted), the low keys ``lo`` in position order and
+    both sorts' indices (:func:`_sort_pairs`), the position-order
+    group-start ranks, the unresolved mask (a row not a group of its own)
+    and its count (a 0-dim int64 tensor on the device)."""
+    m = _heads_inputs("heads_full", hi_s, lo, o1, o2)
+    if hi_s.device.type == "cpu":
+        return heads_full_plain(hi_s, lo, o1, o2)
+    dev = hi_s.device
+    rank = torch.empty(m, dtype=torch.int64, device=dev)
+    mask = torch.empty(m, dtype=torch.bool, device=dev)
+    scratch = _heads_scratch(m, dev)
+    _launch("bwt_heads", dev, 0, hi_s.data_ptr(), lo.data_ptr(),
+            o1.data_ptr(), o2.data_ptr(), None, m, rank.data_ptr(),
+            mask.data_ptr(), None, scratch.data_ptr())
+    return rank, mask, scratch[-1]
+
+
+def heads_full_plain(hi_s, lo, o1, o2):
+    """K13's full form's plain version."""
+    pos_s = o1[o2]
+    rank, mask = _rank_mask_to_position_order(_heads(hi_s, lo[pos_s]), pos_s,
+                                              hi_s.shape[0])
+    return rank, mask, mask.sum()
+
+
+def heads_compact(hi_s, lo, o1, o2, uidx, rank):
+    """K13 over the unresolved positions ``uidx`` (the rows of a compact
+    round, :func:`round_keys` with ``uidx``): updates ``rank`` in place,
+    each row to its old rank (``hi_s >> 32``) plus its offset in its
+    old group, and returns (the still-unresolved positions in sorted
+    order, their count as a 0-dim int64 tensor): the first ``count``
+    elements of the list are valid.  Sound because every member of an
+    unresolved group is unresolved, so the group's subgroup offsets are
+    complete."""
+    m = _heads_inputs("heads_compact", hi_s, lo, o1, o2, uidx)
+    _vec("heads_compact", rank, torch.int64)
+    _same_device("heads_compact", hi_s, rank)
+    if m >= _MAX_N - 1:
+        raise ValueError(f"heads_compact: {m} rows, fewer than 2^31 - 1")
+    if hi_s.device.type == "cpu":
+        return heads_compact_plain(hi_s, lo, o1, o2, uidx, rank)
+    dev = hi_s.device
+    still = torch.empty(m, dtype=torch.int64, device=dev)
+    scratch = _heads_scratch(m, dev)
+    _launch("bwt_heads", dev, 1, hi_s.data_ptr(), lo.data_ptr(),
+            o1.data_ptr(), o2.data_ptr(), uidx.data_ptr(), m,
+            rank.data_ptr(), None, still.data_ptr(), scratch.data_ptr())
+    return still, scratch[-1]
+
+
+def heads_compact_plain(hi_s, lo, o1, o2, uidx, rank):
+    """K13's compact form's plain version."""
+    perm = o1[o2]
     m = uidx.shape[0]
     pos = torch.arange(m, device=uidx.device)
-    r1s = r1[perm]
+    r1s = hi_s >> 32
     h1 = _heads(r1s)
-    hall = _heads(key_a[perm], key_b[perm])
+    hall = _heads(hi_s, lo[perm])
     s1 = torch.cummax(torch.where(h1, pos, -1), 0).values
     sall = torch.cummax(torch.where(hall, pos, -1), 0).values
     uidx_s = uidx[perm]
     rank[uidx_s] = r1s + (sall - s1)
     nxt = torch.ones_like(hall)
     nxt[:-1] = hall[1:]
-    return uidx_s[~(hall & nxt)]
+    still = uidx_s[~(hall & nxt)]
+    return still, torch.tensor(still.shape[0], device=uidx.device)
 
 
-def _refine(rank: torch.Tensor, mask: torch.Tensor, k: int, n: int):
-    """Quadrupling rounds from ranks resolved to step ``k``: full rounds
-    while more than n/4 of the n positions are unresolved, then rounds
-    over the unresolved positions only.  Returns the final ranks."""
-    cnt = int(mask.sum())
+def _rank_pairs(key_hi, key_lo):
+    """Sort the rows by (key_hi, key_lo) and rank them (K13's full form):
+    (rank, unresolved mask, count)."""
+    hi_s, o1, o2 = _sort_pairs(key_hi, key_lo)
+    return heads_full(hi_s, key_lo, o1, o2)
+
+
+def _refine(rank: torch.Tensor, mask: torch.Tensor, cnt, k: int, n: int,
+            left: list | None = None):
+    """Quadrupling rounds from ranks resolved to step ``k`` (``cnt``
+    positions unresolved): full rounds while more than n/4 of the n
+    positions are unresolved, then rounds over the unresolved positions
+    only.  Returns the final ranks; each round's unresolved count is
+    appended to ``left`` when given."""
+    cnt = int(cnt)
     m1 = min(n, max(4096, n // 4))
     while cnt > m1 and k < 2 * n:
-        rank, mask, cnt = _full_round4(rank, k, n)
+        keys = round_keys(rank, k)
+        del rank, mask
+        rank, mask, cnt = _rank_pairs(*keys)
+        del keys
+        cnt = int(cnt)
+        if left is not None:
+            left.append(cnt)
         k *= 4
     uidx = torch.nonzero(mask)[:, 0]
+    del mask
     while uidx.numel() > 0 and k < 2 * n:
-        uidx = _bucket_round_compact4(rank, uidx, k, n)
+        key_a, key_b = round_keys(rank, k, uidx)
+        hi_s, o1, o2 = _sort_pairs(key_a, key_b)
+        still, cnt = heads_compact(hi_s, key_b, o1, o2, uidx, rank)
+        uidx = still[:int(cnt)]
+        if left is not None:
+            left.append(uidx.numel())
         k *= 4
     return rank
 
@@ -200,10 +385,16 @@ def _sa_of(rank: torch.Tensor) -> torch.Tensor:
     return sa
 
 
+def suffix_ranks(data: torch.Tensor) -> torch.Tensor:
+    """Position-ordered suffix ranks (ISA) of u8[n], n >= 1, by prefix
+    quadrupling."""
+    rank, mask, cnt = _rank_pairs(*boot_keys(data))
+    return _refine(rank, mask, cnt, _BOOT_DEPTH, data.shape[0])
+
+
 def suffix_array(data: torch.Tensor):
     """Suffix array and ranks (ISA) of u8[n] by prefix quadrupling."""
-    rank, mask = _bootstrap(data)
-    rank = _refine(rank, mask, _BOOT_DEPTH, data.shape[0])
+    rank = suffix_ranks(data)
     return _sa_of(rank), rank
 
 
@@ -232,36 +423,11 @@ def suffix_array(data: torch.Tensor):
 #   suffix that is a prefix of a longer one sorts first.
 
 
-def _dc3_sample_rank(data: torch.Tensor, n3: int, m: int) -> torch.Tensor:
+def _dc3_sample_rank(data: torch.Tensor, m: int) -> torch.Tensor:
     """All-distinct group-start ranks of the m sample suffixes, in slot
     order."""
-    n = data.shape[0]
-    L = 3 * n3
-    d = torch.zeros(L, dtype=torch.int64, device=data.device)
-    d[:n] = data  # bytes past the end read 0
-
-    def pbyte(j: int) -> torch.Tensor:
-        return _shifted(d, j, 0)
-
-    def red(a: torch.Tensor) -> torch.Tensor:
-        return a.view(n3, 3)[:, 1:].reshape(2 * n3)[:m]
-
-    words = []
-    for w in range(3):
-        acc = torch.zeros(L, dtype=torch.int64, device=data.device)
-        for j in range(4):
-            acc = (acc << 8) | pbyte(4 * w + j)
-        words.append(red(acc))
-    rem = torch.clamp(n - torch.arange(L, device=data.device), 1,
-                      _BOOT_DEPTH)
-    words.append(red((((pbyte(12) << 8 | pbyte(13)) << 8 | pbyte(14)) << 8)
-                     | rem))
-    k_hi = _pair_key(words[0], words[1], -(1 << 31))
-    k_lo = _pair_key(words[2], words[3], -(1 << 31))
-    pos_s = _lex_order(k_hi, k_lo)
-    rank, mask = _rank_mask_to_position_order(
-        _heads(k_hi[pos_s], k_lo[pos_s]), pos_s, m)
-    return _refine(rank, mask, 10, m)
+    rank, mask, cnt = _rank_pairs(*boot_keys(data, sample=True))
+    return _refine(rank, mask, cnt, 10, m)
 
 
 def _merge_class_sort(k_char, k_rank, pay, own):
@@ -295,7 +461,7 @@ def _dc3_rank(data: torch.Tensor) -> torch.Tensor:
     m = n - n3
     L = 3 * n3
 
-    rank_red = _dc3_sample_rank(data, n3, m)
+    rank_red = _dc3_sample_rank(data, m)
 
     # sample ranks in text coordinates, past-the-end positions ranking
     # n-1-p
@@ -351,9 +517,34 @@ def suffix_array_dc3(data: torch.Tensor):
     return _sa_of(rank), rank
 
 
-def _extract_bwt_impl(data: torch.Tensor, rank: torch.Tensor, r: int):
-    """U + primary + aux from position-ordered ranks; ``r`` is the aux
-    sampling rate."""
+def extract(data: torch.Tensor, rank: torch.Tensor, r: int):
+    """K14: U + primary + aux from the all-distinct position-order ranks of
+    u8[n], n >= 2, with no suffix array; ``r`` is the aux sampling rate.
+    Suffix i != 0 of rank j writes T[i - 1] to U[j + (j < r0)] (r0 =
+    rank[0]), suffix 0 writes T[n - 1] to U[0]; primary = r0 + 1 (a 0-dim
+    int64 tensor); aux[t] = rank[(t + 1) r] as int32."""
+    data = data.contiguous()
+    _vec("extract", data, torch.uint8)
+    _vec("extract", rank, torch.int64)
+    _same_device("extract", data, rank)
+    n = int(data.shape[0])
+    if rank.shape[0] != n or n < 2 or r < 1:
+        raise ValueError("extract: a rank a byte, at least 2 bytes, and a "
+                         f"rate of at least 1 (got {r})")
+    if data.device.type == "cpu":
+        return extract_plain(data, rank, r)
+    dev = data.device
+    n_aux = (n - 1) // r
+    U = torch.empty(n, dtype=torch.uint8, device=dev)
+    primary = torch.empty((), dtype=torch.int64, device=dev)
+    aux = torch.empty(n_aux, dtype=torch.int32, device=dev)
+    _launch("bwt_extract", dev, data.data_ptr(), rank.data_ptr(), n, r,
+            n_aux, U.data_ptr(), primary.data_ptr(), aux.data_ptr())
+    return U, primary, aux
+
+
+def extract_plain(data: torch.Tensor, rank: torch.Tensor, r: int):
+    """K14's plain version."""
     n = data.shape[0]
     A = torch.roll(data, 1)[_sa_of(rank)]  # T[SA[j]-1]; T[n-1] for suffix 0
     r0 = rank[0]
@@ -373,8 +564,7 @@ def bwt_encode(data: torch.Tensor):
     if n <= 1:
         return (data, torch.tensor(n, device=data.device),
                 torch.zeros(0, dtype=torch.int32, device=data.device))
-    _, rank = suffix_array(data)
-    return _extract_bwt_impl(data, rank, aux_rate(n))
+    return extract(data, suffix_ranks(data), aux_rate(n))
 
 
 def suffix_array_fast(data: torch.Tensor) -> torch.Tensor:
@@ -383,10 +573,10 @@ def suffix_array_fast(data: torch.Tensor) -> torch.Tensor:
     The JAX package keeps a second, host-driven sort beside its traceable
     one because XLA wants static shapes: it syncs a count each round and
     re-sorts the unresolved positions in padded buckets.  The port's
-    :func:`suffix_array` is already host-driven (a count sync each round,
+    :func:`suffix_ranks` is already host-driven (a count sync each round,
     rounds over the unresolved positions only once they number under
     n/4), so this returns its ranks."""
-    return suffix_array(data)[1]
+    return suffix_ranks(data)
 
 
 def bwt_encode_fast(data: torch.Tensor):
@@ -396,7 +586,7 @@ def bwt_encode_fast(data: torch.Tensor):
     if n <= 1:
         return (data, torch.tensor(n, device=data.device),
                 torch.zeros(0, dtype=torch.int32, device=data.device))
-    return _extract_bwt_impl(data, suffix_array_fast(data), aux_rate(n))
+    return extract(data, suffix_array_fast(data), aux_rate(n))
 
 
 def _log2_ceil(n: int) -> int:
@@ -451,7 +641,7 @@ def bwt_encode_dc3(data: torch.Tensor):
     n = data.shape[0]
     if n < 64:
         return bwt_encode(data)
-    return _extract_bwt_impl(data, _dc3_rank(data), aux_rate(n))
+    return extract(data, _dc3_rank(data), aux_rate(n))
 
 
 def bwt_encode_wideaux_device(data: torch.Tensor, r: int):
@@ -461,8 +651,7 @@ def bwt_encode_wideaux_device(data: torch.Tensor, r: int):
     n = data.shape[0]
     if n <= 1:
         return data, torch.tensor(n), torch.zeros(0, dtype=torch.int32)
-    _, rank = suffix_array(data)
-    return _extract_bwt_impl(data, rank, r)
+    return extract(data, suffix_ranks(data), r)
 
 
 def chase_inputs(T: torch.Tensor, index: int, aux: torch.Tensor):

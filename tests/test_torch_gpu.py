@@ -1,4 +1,4 @@
-"""The CUDA kernels K1-K10 against their plain PyTorch versions on the card,
+"""The CUDA kernels K1-K14 against their plain PyTorch versions on the card,
 at small size, the fused -m9 -e4 -G route through them (v3 and v2 coder),
 the pipelined many-block entry points, the sharded transform step on a
 one-GPU mesh (K6 in its stage 1), the -m5 -G device ST route, the
@@ -11,7 +11,10 @@ pool's page-locked slots on the fused route; K8 (the wide-aux
 inverse BWT: its chase at any rate, its table kernel), K9 and K10 (the
 bit schedule) on its edge block, the hard blocks and their batch and tile
 edges, their launches on the fused route, and the v1 schedule
-(TBSC_WIDE_DEV_SCHED) through them against the native walker.
+(TBSC_WIDE_DEV_SCHED) through them against the native walker; K11-K14
+(the forward BWT's sort) on the hard blocks and at their tile edges, and
+every forward BWT route through them with no plain version, cummax or
+shifted copy.
 
 These tests need a CUDA device and skip without one.  tests/conftest.py
 imports JAX, which a GPU machine need not have, so run them there with
@@ -543,7 +546,8 @@ _SCAN = ("sched_events", "sched_planes", "unbwt_table", "unbwt_chase")
 
 
 def _scan_launches() -> dict:
-    return {**BW.LAUNCHES, **WS.LAUNCHES}
+    return {k: v for k, v in {**BW.LAUNCHES, **WS.LAUNCHES}.items()
+            if k in _SCAN}
 
 
 @pytest.mark.parametrize("case", ["edges", "random", "zeros", "skewed"])
@@ -724,3 +728,72 @@ def test_decompress_batch_keeps_fresh_buffers_on_cuda(cuda, monkeypatch):
     assert not th.is_alive()
     assert box["out"] == blocks and box["slots"] == {}
     assert [P.decompress(b) for b in blobs] == blocks
+
+
+_SORT = ("bwt_boot_keys", "bwt_round_keys", "bwt_heads", "bwt_extract")
+
+
+@pytest.mark.parametrize("case", ["text", "zeros", "periodic",
+                                  "high-entropy", "2", "3", "17", "255",
+                                  "1023", "1025", "2047", "2049", "4096"])
+def test_sort_kernels_equal_plain_and_native(cuda, case):
+    """K11-K14 on one block through chip_smoke.check_sort: every kernel
+    call of the wide-aux BWT and of DC3 held to its plain version on the
+    same inputs, U, the primary and the aux indexes to the native BWT's;
+    K13's tile is 1,024 rows, K11's block 2,048."""
+    from chip_smoke import check_sort, hard_blocks, periodic_block
+
+    text = _text(1 << 20, 1400)
+    blocks = {"text": text, "zeros": bytes(300_000),
+              "periodic": periodic_block(300_000),
+              "high-entropy": hard_blocks(text)["random"][0]}
+    data = blocks.get(case) or text[:int(case)]
+    before = {k: BW.LAUNCHES[k] for k in _SORT}
+    err = check_sort(case, np.frombuffer(data, np.uint8), cuda)
+    torch.cuda.synchronize()
+    assert err == dict.fromkeys(_SORT, 0)
+    assert all(BW.LAUNCHES[k] > before[k] for k in _SORT
+               if k != "bwt_round_keys")
+
+
+def test_forward_bwt_routes_launch_only_the_kernels(cuda, monkeypatch):
+    """bwt_encode, bwt_encode_wideaux_device, bwt_encode_dc3, suffix_array
+    and the transform step's batch_bwt_encode on the card with every plain
+    version, torch.cummax and _shifted made to raise: each equals the
+    native BWT, and K11-K14 launch."""
+    from libbsc_tpu_torch import engine
+    from libbsc_tpu_torch.parallel import pipeline
+
+    def refuse(*a, **k):
+        raise AssertionError("a plain step ran on the card")
+
+    for name in ("boot_keys_plain", "round_keys_plain", "heads_full_plain",
+                 "heads_compact_plain", "extract_plain", "_shifted",
+                 "_rank_mask_to_position_order"):
+        monkeypatch.setattr(BW, name, refuse)
+    monkeypatch.setattr(torch, "cummax", refuse)
+    data = _text(300_000, 1401)
+    d = torch.from_numpy(np.frombuffer(data, np.uint8).copy()).to(cuda)
+    ref = np.frombuffer(data, np.uint8).copy()
+    primary, ni, idx = engine.bwt_encode(ref, 0)
+    before = {k: BW.LAUNCHES[k] for k in _SORT}
+    for fn in (BW.bwt_encode, BW.bwt_encode_dc3,
+               lambda x: pipeline.batch_bwt_encode(x[None])):
+        U, p, aux = fn(d)
+        assert U.reshape(-1).cpu().numpy().tobytes() == ref.tobytes()
+        assert int(p.reshape(-1)[0]) == primary
+        np.testing.assert_array_equal(aux.reshape(-1).cpu().numpy(),
+                                      idx[:ni])
+    r = engine.wideaux_rate(len(data))
+    U, p, aux = BW.bwt_encode_wideaux_device(d, r)
+    ref = np.frombuffer(data, np.uint8).copy()
+    k = (len(data) - 1) // r
+    idx = np.zeros(k, np.int32)
+    assert int(p) == native.load().tbsc_bwt_encode_rate(
+        native.u8p(ref), len(data), r, native.i32p(idx))
+    assert U.cpu().numpy().tobytes() == ref.tobytes()
+    np.testing.assert_array_equal(aux.cpu().numpy(), idx)
+    sa, rank = BW.suffix_array(d)
+    assert torch.equal(sa[rank], torch.arange(len(data), device=cuda))
+    assert all(BW.LAUNCHES[k] >= before[k] + 4 for k in _SORT
+               if k != "bwt_round_keys")
