@@ -42,14 +42,18 @@ Phases, one line or more each:
      each chase's latency floor (tools/chase_variants.py); K9's clock64()
      split and its longest lane alone (tools/schedule_step_split.py);
      K11-K14 (the forward BWT's sort: bootstrap keys, round keys, group
-     heads and ranks, extraction) held to their plain versions call by
-     call (held_to_plain) through the wide-aux BWT and DC3 of the 4 MiB
-     block, all-zero and periodic 4 MiB blocks, the high-entropy hard
-     block and the text at SORT_SIZES (2, 3, 17, 255, 4,096 and K13's and
-     K11's tiles +- 1), exactly, each BWT also against the native one;
-     then each timed with CUDA events on the 25 MiB block's own inputs
-     beside its plain version, K13 also beside torch.cummax of its rows
-     (library_ms) and K12 and K13 in the compact round's form;
+     heads and ranks in a pre-pass and a main pass, the extraction in two
+     passes) held to their plain versions call by call (held_to_plain)
+     through the wide-aux BWT and DC3 of the 4 MiB block, all-zero and
+     periodic 4 MiB blocks, the high-entropy hard block and the text at
+     SORT_SIZES (2, 3, 17, 255, 4,096, K13's and K11's tiles +- 1, K14's
+     8,192-row blocks + 1, one and three 64 KiB buckets + a part),
+     exactly, each BWT also against the native one; then each timed with
+     CUDA events on the 25 MiB block's own inputs beside its plain
+     version, K13's main pass also beside torch.cummax of its rows
+     (library_ms), its pre-pass beside the gather it took over, K13 and
+     K14 whole beside the bound of their function, and K12 and K13 in the
+     compact round's form;
   3. the v3 main path: the 25 MiB block through api.compress and
      api.decompress with -m9 -e4 -G, launch counters set to 0 just before
      and read just after (K8-K10's also between the two).  K1, K2 and K3
@@ -195,10 +199,16 @@ and writes the block (operations: 8 search steps a row searched); what
 bounds the chase is the latency of its r / 2 dependent loads a chain,
 which no bytes count shows: latency_floor_ms is one chain launched alone.
 K11 reads the block and writes two int64 keys a row (17 bytes a row),
-K12 reads the ranks and writes the keys (24), K13 reads the sorted high
-keys, the low keys and both sorts' indices and writes the ranks and the
-mask (41), K14 reads the block and the ranks and writes U (10, and the
-aux indexes).
+K12 reads the ranks and writes the keys (24).  K13's pre-pass reads the
+first sort's values and indices and the high keys and writes the second
+sort's input and the packed words (40); its main pass reads the sorted
+high keys, the second sort's indices and the packed words and writes the
+ranks and the unresolved list (32, and 8 an unresolved row); the
+function K13 computes reads the sorted keys and the permutation and
+writes the ranks and a mask (41, k13_bound_ms).  K14's pass 1 reads the
+ranks and the block and writes the stage (13, and the aux indexes), its
+pass 2 reads the stage and writes U (5); the function reads the block and
+the ranks and writes U (10, k14_bound_ms).
 """
 
 from __future__ import annotations
@@ -243,7 +253,9 @@ REPLACES = {  # kernel -> the Pallas kernel it replaces
     # K11-K14 replace the XLA suffix sort and extraction of the forward BWT
     "bwt_boot_keys": "libbsc_tpu/ops/bwt.py:74",
     "bwt_round_keys": "libbsc_tpu/ops/bwt.py:153",
+    "bwt_heads_pay": "libbsc_tpu/ops/bwt.py:120",
     "bwt_heads": "libbsc_tpu/ops/bwt.py:120",
+    "bwt_extract_bins": "libbsc_tpu/ops/bwt.py:754",
     "bwt_extract": "libbsc_tpu/ops/bwt.py:754",
 }
 V3 = ("wide_model", "wide_rans", "wide_decode")
@@ -259,15 +271,20 @@ SOURCE = {"wide_decode_v2": "wide_decode",  # K4 is K3's template twin
           "unbwt_table": "unbwt_chase",
           "sched_events": "wide_schedule", "sched_planes": "wide_schedule",
           "bwt_boot_keys": "bwt_sort", "bwt_round_keys": "bwt_sort",
-          "bwt_heads": "bwt_sort", "bwt_extract": "bwt_sort"}
-# K11-K14, the forward BWT's sort, and their fewest launches in a -m9 -e4
-# -G encode (the bootstrap, a round at least, and the extraction)
-SORT = ("bwt_boot_keys", "bwt_round_keys", "bwt_heads", "bwt_extract")
-SORT_ENCODE = {"bwt_boot_keys": 1, "bwt_round_keys": 1, "bwt_heads": 2,
-               "bwt_extract": 1}
+          "bwt_heads_pay": "bwt_sort", "bwt_heads": "bwt_sort",
+          "bwt_extract_bins": "bwt_sort", "bwt_extract": "bwt_sort"}
+# K11-K14, the forward BWT's sort (K13 its pre-pass and main pass, K14 its
+# two passes), and their fewest launches in a -m9 -e4 -G encode (the
+# bootstrap, a round at least, and the extraction)
+SORT = ("bwt_boot_keys", "bwt_round_keys", "bwt_heads_pay", "bwt_heads",
+        "bwt_extract_bins", "bwt_extract")
+SORT_ENCODE = {"bwt_boot_keys": 1, "bwt_round_keys": 1, "bwt_heads_pay": 2,
+               "bwt_heads": 2, "bwt_extract_bins": 1, "bwt_extract": 1}
+K14_BUCKET = 1 << 16         # K14's slots of U a bucket
 # phase 2's block sizes for K11-K14: K13's tile is 1,024 rows, K11's block
-# 2,048
-SORT_SIZES = (2, 3, 17, 255, 4096, 1023, 1025, 2047, 2049)
+# 2,048, K14's pass-1 block 8,192 and its bucket 65,536 slots
+SORT_SIZES = (2, 3, 17, 255, 4096, 1023, 1025, 2047, 2049, 8193, 65537,
+              3 * 65536 + 12345)
 
 
 def make_corpus(n_bytes: int) -> bytes:
@@ -991,11 +1008,11 @@ def breakdown(data: bytes, features: int, archive: bytes, device) -> dict:
     lz_d = stage("h2d", lambda: torch.from_numpy(lz).to(device))
     n = len(lz)
     left = []  # each round's unresolved count
-    rank, mask, cnt = stage("boot", lambda: (lambda t: (t[0], t[1], int(
+    rank, still, cnt = stage("boot", lambda: (lambda t: (t[0], t[1], int(
         t[2])))(bwt._rank_pairs(*bwt.boot_keys(lz_d))))
-    rank = stage("rounds", lambda: bwt._refine(rank, mask, cnt,
+    rank = stage("rounds", lambda: bwt._refine(rank, still, cnt,
                                                bwt._BOOT_DEPTH, n, left))
-    del mask
+    del still
     U, primary, aux = stage("extract", lambda: bwt.extract(lz_d, rank, r))
     ms["bwt"] = ms["boot"] + ms["rounds"] + ms["extract"]
     del rank
@@ -1296,18 +1313,39 @@ def check_scan_all(st: dict, text: bytes, device) -> dict:
             for name in SCAN}
 
 
+def canonical(f: str, out: tuple) -> tuple:
+    """An output of ops/bwt's wrapper ``f`` in the form its plain version
+    gives it: K13's unresolved list cut to its count, K14's stage sorted
+    within each bucket (the kernel's order there is its atomics')."""
+    import torch
+
+    if f in ("heads_full", "heads_compact"):
+        *rest, still, cnt = out
+        return (*rest, still[:int(cnt)], cnt)
+    if f == "extract_bins":
+        stage, *rest = out
+        whole = stage.shape[0] - stage.shape[0] % K14_BUCKET
+        return (torch.cat([
+            torch.sort(stage[:whole].view(-1, K14_BUCKET), 1).values.view(-1),
+            torch.sort(stage[whole:]).values]), *rest)
+    return out
+
+
 @contextlib.contextmanager
 def held_to_plain(err: dict):
     """Within the block, every call of K11-K14's wrappers (ops/bwt's
-    boot_keys, round_keys, heads_full, heads_compact and extract) also
-    runs its plain version on the same inputs (heads_compact's on a copy
-    of the ranks it updates), and err[kernel] gets the largest absolute
-    difference of any output."""
+    boot_keys, round_keys, heads_pay, heads_full, heads_compact,
+    extract_bins, extract_place and extract) also runs its plain version
+    on the same inputs (heads_compact's on a copy of the ranks it
+    updates), and err[kernel] gets the largest absolute difference of any
+    output (each in canonical form)."""
     from libbsc_tpu_torch.ops import bwt
 
     names = {"boot_keys": "bwt_boot_keys", "round_keys": "bwt_round_keys",
-             "heads_full": "bwt_heads", "heads_compact": "bwt_heads",
-             "extract": "bwt_extract"}
+             "heads_pay": "bwt_heads_pay", "heads_full": "bwt_heads",
+             "heads_compact": "bwt_heads",
+             "extract_bins": "bwt_extract_bins",
+             "extract_place": "bwt_extract", "extract": "bwt_extract"}
     saved = {f: getattr(bwt, f) for f in names}
 
     def held(f):
@@ -1315,14 +1353,16 @@ def held_to_plain(err: dict):
 
         def call(*args, **kw):
             if f == "heads_compact":
-                rank_p = args[5].clone()
-                still, cnt = out = saved[f](*args)
-                still_p, cnt_p = plain(*args[:5], rank_p)
-                e = max_err((args[5], still[:int(cnt)], cnt),
-                            (rank_p, still_p[:int(cnt_p)], cnt_p))
+                rank_p = args[3].clone()
+                out = saved[f](*args)
+                e = max_err(canonical(f, (args[3], *out)),
+                            (rank_p, *plain(*args[:3], rank_p)))
             else:
                 out = saved[f](*args, **kw)
-                e = max_err(out, plain(*args, **kw))
+                got = out if isinstance(out, tuple) else (out,)
+                want = plain(*args, **kw)
+                e = max_err(canonical(f, got),
+                            want if isinstance(want, tuple) else (want,))
             err[names[f]] = max(err[names[f]], e)
             return out
         return call
@@ -1412,10 +1452,13 @@ def time_sort(st: dict, device) -> list:
     """Phase 2 time of K11-K14 with CUDA events on the 25 MiB block's own
     inputs (the main path's: the block as its LZP leaves it, the
     bootstrap's sorted keys, its ranks, the final ranks), each held to its
-    plain version there and beside it (timed once); K13 beside
-    torch.cummax of its rows' head positions (library_ms: the call the
-    plain version makes, alone).  K12 and K13 also in the compact round's
-    form, on that round's rows."""
+    plain version there and beside it (timed once); K13's main pass
+    beside torch.cummax of its rows' head positions (library_ms: the call
+    the plain version makes, alone), its pre-pass beside the torch gather
+    key_hi[o1] it took over.  K13 (pre-pass + main pass) and K14 (both
+    passes) are also summed, beside the bound of the function each
+    computes.  K12 and K13 also in the compact round's form, on that
+    round's rows."""
     import torch
 
     from libbsc_tpu_torch.ops import bwt
@@ -1424,47 +1467,69 @@ def time_sort(st: dict, device) -> list:
     n, r = int(d.shape[0]), st["r"]
     k0 = bwt._BOOT_DEPTH
     k_hi, k_lo = bwt.boot_keys(d)
-    hi_s, o1, o2 = bwt._sort_pairs(k_hi, k_lo)
-    del k_hi
-    rank, _, cnt = bwt.heads_full(hi_s, k_lo, o1, o2)
-    where = torch.where(bwt._heads(hi_s, k_lo[o1[o2]]),
+    lo_s, o1 = torch.sort(k_lo, stable=True)
+    del k_lo
+    hi1, pay = bwt.heads_pay(lo_s, o1, k_hi)
+    hi_s, o2 = torch.sort(hi1, stable=True)
+    del hi1
+    rank, _, cnt = bwt.heads_full(hi_s, pay, o2)
+    where = torch.where(bwt._pay_sorted(hi_s, pay, o2)[1],
                         torch.arange(n, device=device), -1)
     full = bwt._rank_pairs(*bwt.round_keys(rank, k0))
-    uidx = torch.nonzero(full[1])[:, 0]
+    uidx = full[1][:int(full[2])]
     c_a, c_lo = bwt.round_keys(full[0], 4 * k0, uidx)
-    c_hi, c_o1, c_o2 = bwt._sort_pairs(c_a, c_lo)
+    c_hi, c_pay, c_o2 = bwt._sort_rows(c_a, c_lo, uidx)
+    c_lo_s, c_o1 = torch.sort(c_lo, stable=True)
     c_rank = full[0].clone()
-    del c_a
+    del c_lo
     final = bwt.suffix_ranks(d)
+    stage = bwt.extract_bins(d, final, r)[0]
     m = int(uidx.shape[0])
     n_aux = (n - 1) // r
+    left = int(cnt)
     runs = {  # name -> (kernel, plain, bytes, library call)
         "bwt_boot_keys": (lambda: bwt.boot_keys(d),
                           lambda: bwt.boot_keys_plain(d), 17 * n, None),
         "bwt_round_keys": (lambda: bwt.round_keys(rank, k0),
                            lambda: bwt.round_keys_plain(rank, k0), 24 * n,
                            None),
-        # the sorted high keys, the low keys, both sorts' indices read;
-        # rank and mask written
-        "bwt_heads": (lambda: bwt.heads_full(hi_s, k_lo, o1, o2),
-                      lambda: bwt.heads_full_plain(hi_s, k_lo, o1, o2),
-                      41 * n, lambda: torch.cummax(where, 0)),
-        "bwt_extract": (lambda: bwt.extract(d, final, r),
-                        lambda: bwt.extract_plain(d, final, r),
-                        10 * n + 4 * n_aux + 8, None),
+        # the first sort's values and indices, the high keys read; the
+        # second sort's input and the packed words written
+        "bwt_heads_pay": (lambda: bwt.heads_pay(lo_s, o1, k_hi),
+                          lambda: bwt.heads_pay_plain(lo_s, o1, k_hi),
+                          40 * n, None),
+        # the sorted high keys, the second sort's indices and the packed
+        # words read; rank and the unresolved list written
+        "bwt_heads": (lambda: bwt.heads_full(hi_s, pay, o2),
+                      lambda: bwt.heads_full_plain(hi_s, pay, o2),
+                      32 * n + 8 * left + 8, lambda: torch.cummax(where, 0)),
+        # the ranks and the block read; the stage, aux and primary written
+        "bwt_extract_bins": (lambda: bwt.extract_bins(d, final, r),
+                             lambda: bwt.extract_bins_plain(d, final, r),
+                             13 * n + 4 * n_aux + 8, None),
+        # the stage read, U written
+        "bwt_extract": (lambda: bwt.extract_place(stage),
+                        lambda: bwt.extract_place_plain(stage), 5 * n, None),
     }
+    wrapper = {"bwt_boot_keys": "boot_keys", "bwt_round_keys": "round_keys",
+               "bwt_heads_pay": "heads_pay", "bwt_heads": "heads_full",
+               "bwt_extract_bins": "extract_bins",
+               "bwt_extract": "extract_place"}
     compact_calls = {
         "bwt_round_keys": lambda: bwt.round_keys(full[0], 4 * k0, uidx),
-        "bwt_heads": lambda: bwt.heads_compact(c_hi, c_lo, c_o1, c_o2,
-                                               uidx, c_rank)}
+        "bwt_heads_pay": lambda: bwt.heads_pay(c_lo_s, c_o1, c_a, uidx),
+        "bwt_heads": lambda: bwt.heads_compact(c_hi, c_pay, c_o2, c_rank)}
     rows = []
     for name, (kernel, plain, nbytes, library) in runs.items():
         ms = cuda_ms(kernel, TIMED_LAUNCHES)
         out_p, plain_ms = timed(plain)
-        if max_err(kernel(), out_p):
+        out_p = out_p if isinstance(out_p, tuple) else (out_p,)
+        out_k = kernel()
+        if max_err(canonical(wrapper[name], out_k if isinstance(
+                out_k, tuple) else (out_k,)), out_p):
             fail(f"{name} differs from its plain version on the 25 MiB "
                  "block")
-        del out_p
+        del out_p, out_k
         b, by = bound_ms(nbytes, 0)
         lib_ms = cuda_ms(library, TIMED_LAUNCHES) if library else None
         row = {"name": name, "route": "cuda",
@@ -1473,6 +1538,9 @@ def time_sort(st: dict, device) -> list:
                "plain_at_bytes": n, "bound_ms": b, "bound_by": by,
                "library_ms": lib_ms, "rows": n}
         extra = f", torch.cummax {lib_ms:.3f} ms" if lib_ms else ""
+        if name == "bwt_heads_pay":
+            row["gather_ms"] = cuda_ms(lambda: k_hi[o1], TIMED_LAUNCHES)
+            extra += f", the gather key_hi[o1] {row['gather_ms']:.4f} ms"
         if name in compact_calls and m:
             row["compact_ms"] = cuda_ms(compact_calls[name], TIMED_LAUNCHES)
             row["compact_rows"] = m
@@ -1481,7 +1549,22 @@ def time_sort(st: dict, device) -> list:
         rows.append(row)
         print(f"phase 2 time {name}: {ms:.4f} ms (bound {b:.4f} ms by {by})"
               f", plain {plain_ms:.1f} ms{extra}; {n} rows, the bootstrap "
-              f"left {int(cnt)} unresolved, the full round {int(full[2])}",
+              f"left {left} unresolved, the full round {int(full[2])}",
+              flush=True)
+    by_name = {row["name"]: row for row in rows}
+    # K13 and K14 whole, beside the bound of the function each computes:
+    # K13 reads the sorted keys and the permutation and writes rank and
+    # mask (41 bytes a row); K14 reads T and rank and writes U (10)
+    for kid, parts, nbytes in (
+            ("K13", ("bwt_heads_pay", "bwt_heads"), 41 * n),
+            ("K14", ("bwt_extract_bins", "bwt_extract"),
+             10 * n + 4 * n_aux + 8)):
+        ms = sum(by_name[p]["ms"] for p in parts)
+        b = bound_ms(nbytes, 0)[0]
+        by_name[parts[-1]].update({f"{kid.lower()}_ms": ms,
+                                   f"{kid.lower()}_bound_ms": b})
+        print(f"phase 2 time {kid} ({' + '.join(parts)}): {ms:.4f} ms, "
+              f"{ms / b:.1f}x the function's bound {b:.4f} ms; {smi()}",
               flush=True)
     return rows
 

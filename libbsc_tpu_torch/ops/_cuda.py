@@ -114,10 +114,14 @@ _SIGNATURES = {
                       [_VP, _L, _L, _I, _VP, _VP, _VP]),
     "bwt_round_keys": ("bwt_sort", "bwt_round_keys_launch",
                        [_VP, _L, _L, _VP, _L, _VP, _VP, _VP]),
+    "bwt_heads_pay": ("bwt_sort", "bwt_heads_pay_launch",
+                      [_VP] * 4 + [_L] + [_VP] * 4),
     "bwt_heads": ("bwt_sort", "bwt_heads_launch",
-                  [_I] + [_VP] * 5 + [_L] + [_VP] * 5),
-    "bwt_extract": ("bwt_sort", "bwt_extract_launch",
-                    [_VP, _VP, _L, _L, _L] + [_VP] * 4),
+                  [_I] + [_VP] * 3 + [_L] + [_VP] * 4),
+    "bwt_extract_bins": ("bwt_sort", "bwt_extract_bins_launch",
+                         [_VP, _VP, _L, _L, _L] + [_VP] * 5),
+    "bwt_extract": ("bwt_sort", "bwt_extract_place_launch",
+                    [_VP, _L, _VP, _VP]),
 }
 
 

@@ -15,9 +15,12 @@ multi-key sort: two stable sorts of packed int64 keys (low pair first)
 give the lexicographic order.  On CUDA the steps around the sorts are
 hand kernels (``csrc/bwt_sort.cu``): K11 builds the bootstrap's keys, K12
 a round's, K13 finds the group heads and their starts by a one-pass scan
-with decoupled look-back and writes the ranks, and K14 extracts U, the
-primary and the aux indexes from the final ranks; on the CPU each runs
-its plain torch version (``*_plain``).
+with decoupled look-back (its pre-pass between the two sorts packs each
+row's low-key run and position into one word, so the main pass gathers
+one word a row) and writes the ranks and the still-unresolved list, and
+K14 extracts U, the primary and the aux indexes from the final ranks in
+two passes through 64 KiB buckets of U; on the CPU each runs its plain
+torch version (``*_plain``).
 
 Stream convention (the reference's bwt/bwt.cpp:178-230, the native
 runtime's tbsc_bwt_encode_rate):
@@ -50,8 +53,9 @@ _TWO32 = 1 << 32
 _MAX_N = 1 << 31     # the int64 keys hold a rank in 32 bits
 _HEADS_TILE = 1024   # K13's rows a tile (kTile in csrc/bwt_sort.cu)
 
-LAUNCHES = {"bwt_boot_keys": 0, "bwt_round_keys": 0, "bwt_heads": 0,
-            "bwt_extract": 0, "unbwt_table": 0, "unbwt_chase": 0}
+LAUNCHES = {"bwt_boot_keys": 0, "bwt_round_keys": 0, "bwt_heads_pay": 0,
+            "bwt_heads": 0, "bwt_extract_bins": 0, "bwt_extract": 0,
+            "unbwt_table": 0, "unbwt_chase": 0}
 
 
 def reset_launches() -> None:
@@ -86,19 +90,11 @@ def _pair_key(hi: torch.Tensor, lo: torch.Tensor, hi_bias: int = 0):
     return (hi + hi_bias) * _TWO32 + lo
 
 
-def _sort_pairs(key_hi: torch.Tensor, key_lo: torch.Tensor):
-    """The rows sorted by (key_hi, key_lo), two stable sorts (low key
-    first): (key_hi sorted, the first sort's indices o1, the second's
-    o2); the sorted permutation is o1[o2]."""
-    o1 = torch.sort(key_lo, stable=True).indices
-    hi_s, o2 = torch.sort(key_hi[o1], stable=True)
-    return hi_s, o1, o2
-
-
 def _lex_order(key_hi: torch.Tensor, key_lo: torch.Tensor) -> torch.Tensor:
-    """Stable permutation sorting by (key_hi, key_lo)."""
-    _, o1, o2 = _sort_pairs(key_hi, key_lo)
-    return o1[o2]
+    """Stable permutation sorting by (key_hi, key_lo): two stable sorts,
+    low key first."""
+    o1 = torch.sort(key_lo, stable=True).indices
+    return o1[torch.sort(key_hi[o1], stable=True).indices]
 
 
 def _heads(*sorted_keys: torch.Tensor) -> torch.Tensor:
@@ -106,24 +102,10 @@ def _heads(*sorted_keys: torch.Tensor) -> torch.Tensor:
     differs from the previous row's."""
     n = sorted_keys[0].shape[0]
     heads = torch.zeros(n, dtype=torch.bool, device=sorted_keys[0].device)
-    heads[0] = True
+    heads[:1] = True
     for k in sorted_keys:
         heads[1:] |= k[1:] != k[:-1]
     return heads
-
-
-def _rank_mask_to_position_order(heads, pos_s, n: int):
-    """Sorted-order group heads + the sorted->position permutation ->
-    position-ordered (group-start ranks, unresolved mask)."""
-    pos = torch.arange(n, device=heads.device)
-    gstart = torch.cummax(torch.where(heads, pos, -1), 0).values
-    nxt_head = torch.ones_like(heads)
-    nxt_head[:-1] = heads[1:]
-    rank = torch.empty(n, dtype=torch.int64, device=heads.device)
-    rank[pos_s] = gstart
-    mask = torch.empty(n, dtype=torch.bool, device=heads.device)
-    mask[pos_s] = ~(heads & nxt_head)
-    return rank, mask
 
 
 def _round_keys(r1, r2, r3, r4):
@@ -136,11 +118,13 @@ def _round_keys(r1, r2, r3, r4):
 # ---------------------------------------------------------------------------
 #
 # A round: K11 (the bootstrap) or K12 builds two int64 keys a row, two
-# stable torch.sort calls order the rows (_sort_pairs), and K13 turns the
-# sorted rows into group-start ranks: over all n positions (heads_full) or
+# stable torch.sort calls with K13's pre-pass between them order the rows
+# (_sort_rows), and K13 turns the sorted rows into group-start ranks and
+# the still-unresolved positions: over all n positions (heads_full) or
 # over the unresolved ones (heads_compact).  K14 extracts the BWT from the
-# final ranks.  Each wrapper runs its plain version for a CPU tensor and
-# launches its kernel for a CUDA one (a failed build or launch raises).
+# final ranks in two passes.  Each wrapper runs its plain version for a
+# CPU tensor and launches its kernel for a CUDA one (a failed build or
+# launch raises).
 
 
 def _vec(name: str, t: torch.Tensor, dtype) -> None:
@@ -253,125 +237,185 @@ def round_keys_plain(rank: torch.Tensor, k: int,
     return _round_keys(rank[uidx], cont(k), cont(2 * k), cont(3 * k))
 
 
-def _heads_inputs(name, hi_s, lo, o1, o2, *more) -> int:
-    for t in (hi_s, lo, o1, o2, *more):
+def _int64s(name: str, *ts: torch.Tensor) -> int:
+    """The rows of ``ts``: contiguous 1-D int64 tensors of one length on
+    one device."""
+    for t in ts:
         _vec(name, t, torch.int64)
-    _same_device(name, hi_s, lo, o1, o2, *more)
-    m = int(hi_s.shape[0])
-    if not m == lo.shape[0] == o1.shape[0] == o2.shape[0]:
-        raise ValueError(f"{name}: the sorted keys, the low keys and both "
-                         "sorts' indices must have one length")
+    _same_device(name, *ts)
+    m = int(ts[0].shape[0])
+    if any(t.shape[0] != m for t in ts):
+        raise ValueError(f"{name}: the sorted keys and both sorts' indices "
+                         "must have one length")
     return m
 
 
-def _heads_scratch(m: int, dev) -> torch.Tensor:
-    """K13's zeroed scratch: two status words a tile, the tile counter,
-    the count (the last element)."""
-    return torch.zeros(2 * (-(-m // _HEADS_TILE)) + 2, dtype=torch.int64,
-                       device=dev)
+def _heads_scratch(m: int, arrays: int, dev) -> torch.Tensor:
+    """K13's zeroed scratch: ``arrays`` status words a tile, the tile
+    counter, and the count (the last element)."""
+    return torch.zeros(arrays * (-(-m // _HEADS_TILE)) + 2,
+                       dtype=torch.int64, device=dev)
 
 
-def heads_full(hi_s, lo, o1, o2):
+def heads_pay(lo_s, o1, key_hi, uidx=None):
+    """K13's pre-pass, between the two sorts: from the first sort's values
+    ``lo_s`` (the low keys sorted) and indices ``o1``, (hi1, pay) with
+    hi1[s] = key_hi[o1[s]], the second sort's input, and pay[s] = g(s) <<
+    32 | pos(s): g(s) the first row of s's run of equal ``lo_s``, pos(s) =
+    o1[s], or ``uidx[o1[s]]`` over a compact round's rows.  Two rows have
+    equal low keys exactly when their g are equal."""
+    more = () if uidx is None else (uidx,)
+    m = _int64s("heads_pay", lo_s, o1, key_hi, *more)
+    if m >= _MAX_N:
+        raise ValueError(f"heads_pay: {m} rows, fewer than 2^31")
+    if lo_s.device.type == "cpu":
+        return heads_pay_plain(lo_s, o1, key_hi, uidx)
+    dev = lo_s.device
+    hi1 = torch.empty_like(lo_s)
+    pay = torch.empty_like(lo_s)
+    if m:
+        # held until the launch is queued: freed earlier, its memory could
+        # go to another thread's tensor on this stream before the kernel
+        scratch = _heads_scratch(m, 1, dev)
+        _launch("bwt_heads_pay", dev, lo_s.data_ptr(), o1.data_ptr(),
+                key_hi.data_ptr(), None if uidx is None else uidx.data_ptr(),
+                m, hi1.data_ptr(), pay.data_ptr(), scratch.data_ptr())
+    return hi1, pay
+
+
+def heads_pay_plain(lo_s, o1, key_hi, uidx=None):
+    """K13's pre-pass's plain version."""
+    m = lo_s.shape[0]
+    g = torch.cummax(torch.where(_heads(lo_s),
+                                 torch.arange(m, device=lo_s.device), -1),
+                     0).values
+    pos = o1 if uidx is None else uidx[o1]
+    return key_hi[o1], g << 32 | pos
+
+
+def _sort_rows(key_hi: torch.Tensor, key_lo: torch.Tensor, uidx=None):
+    """The rows sorted by (key_hi, key_lo) for K13: the first stable sort
+    (low key), K13's pre-pass, the second (high key).  Returns (key_hi
+    sorted, pay (:func:`heads_pay`), the second sort's indices o2)."""
+    lo_s, o1 = torch.sort(key_lo, stable=True)
+    hi1, pay = heads_pay(lo_s, o1, key_hi, uidx)
+    del lo_s, o1
+    hi_s, o2 = torch.sort(hi1, stable=True)
+    return hi_s, pay, o2
+
+
+def heads_full(hi_s, pay, o2):
     """K13 over all n positions: from the second sort's values ``hi_s``
-    (the high keys sorted), the low keys ``lo`` in position order and
-    both sorts' indices (:func:`_sort_pairs`), the position-order
-    group-start ranks, the unresolved mask (a row not a group of its own)
-    and its count (a 0-dim int64 tensor on the device)."""
-    m = _heads_inputs("heads_full", hi_s, lo, o1, o2)
+    (the high keys sorted) and indices ``o2`` and the pre-pass's ``pay``
+    (:func:`_sort_rows`), the position-order group-start ranks, the
+    unresolved positions (each not a group of its own) in sorted order,
+    and their count (a 0-dim int64 tensor on the device): the first
+    ``count`` elements of the list are valid."""
+    m = _int64s("heads_full", hi_s, pay, o2)
     if hi_s.device.type == "cpu":
-        return heads_full_plain(hi_s, lo, o1, o2)
+        return heads_full_plain(hi_s, pay, o2)
     dev = hi_s.device
-    rank = torch.empty(m, dtype=torch.int64, device=dev)
-    mask = torch.empty(m, dtype=torch.bool, device=dev)
-    scratch = _heads_scratch(m, dev)
-    _launch("bwt_heads", dev, 0, hi_s.data_ptr(), lo.data_ptr(),
-            o1.data_ptr(), o2.data_ptr(), None, m, rank.data_ptr(),
-            mask.data_ptr(), None, scratch.data_ptr())
-    return rank, mask, scratch[-1]
+    rank = torch.empty_like(hi_s)
+    still = torch.empty_like(hi_s)
+    scratch = _heads_scratch(m, 2, dev)
+    _launch("bwt_heads", dev, 0, hi_s.data_ptr(), o2.data_ptr(),
+            pay.data_ptr(), m, rank.data_ptr(), still.data_ptr(),
+            scratch.data_ptr())
+    return rank, still, scratch[-1]
 
 
-def heads_full_plain(hi_s, lo, o1, o2):
+def _pay_sorted(hi_s, pay, o2):
+    """(the rows' positions, their group heads) in sorted order."""
+    pay_s = pay[o2]
+    return pay_s & 0xFFFFFFFF, _heads(hi_s, pay_s >> 32)
+
+
+def _unresolved(heads: torch.Tensor) -> torch.Tensor:
+    nxt = torch.ones_like(heads)
+    nxt[:-1] = heads[1:]
+    return ~(heads & nxt)
+
+
+def heads_full_plain(hi_s, pay, o2):
     """K13's full form's plain version."""
-    pos_s = o1[o2]
-    rank, mask = _rank_mask_to_position_order(_heads(hi_s, lo[pos_s]), pos_s,
-                                              hi_s.shape[0])
-    return rank, mask, mask.sum()
+    pos_s, heads = _pay_sorted(hi_s, pay, o2)
+    m = hi_s.shape[0]
+    rank = torch.empty(m, dtype=torch.int64, device=hi_s.device)
+    rank[pos_s] = torch.cummax(
+        torch.where(heads, torch.arange(m, device=hi_s.device), -1),
+        0).values
+    still = pos_s[torch.nonzero(_unresolved(heads))[:, 0]]
+    return rank, still, torch.tensor(still.shape[0], device=hi_s.device)
 
 
-def heads_compact(hi_s, lo, o1, o2, uidx, rank):
-    """K13 over the unresolved positions ``uidx`` (the rows of a compact
-    round, :func:`round_keys` with ``uidx``): updates ``rank`` in place,
-    each row to its old rank (``hi_s >> 32``) plus its offset in its
-    old group, and returns (the still-unresolved positions in sorted
-    order, their count as a 0-dim int64 tensor): the first ``count``
-    elements of the list are valid.  Sound because every member of an
-    unresolved group is unresolved, so the group's subgroup offsets are
-    complete."""
-    m = _heads_inputs("heads_compact", hi_s, lo, o1, o2, uidx)
+def heads_compact(hi_s, pay, o2, rank):
+    """K13 over the unresolved positions of a compact round (the rows of
+    :func:`round_keys` with ``uidx``, whose positions :func:`heads_pay`
+    put in ``pay``): updates ``rank`` in place, each row to its old rank
+    (``hi_s >> 32``) plus its offset in its old group, and returns (the
+    still-unresolved positions in sorted order, their count as a 0-dim
+    int64 tensor): the first ``count`` elements of the list are valid.
+    Sound because every member of an unresolved group is unresolved, so
+    the group's subgroup offsets are complete."""
+    m = _int64s("heads_compact", hi_s, pay, o2)
     _vec("heads_compact", rank, torch.int64)
     _same_device("heads_compact", hi_s, rank)
     if m >= _MAX_N - 1:
         raise ValueError(f"heads_compact: {m} rows, fewer than 2^31 - 1")
     if hi_s.device.type == "cpu":
-        return heads_compact_plain(hi_s, lo, o1, o2, uidx, rank)
+        return heads_compact_plain(hi_s, pay, o2, rank)
     dev = hi_s.device
-    still = torch.empty(m, dtype=torch.int64, device=dev)
-    scratch = _heads_scratch(m, dev)
-    _launch("bwt_heads", dev, 1, hi_s.data_ptr(), lo.data_ptr(),
-            o1.data_ptr(), o2.data_ptr(), uidx.data_ptr(), m,
-            rank.data_ptr(), None, still.data_ptr(), scratch.data_ptr())
+    still = torch.empty_like(hi_s)
+    scratch = _heads_scratch(m, 2, dev)
+    _launch("bwt_heads", dev, 1, hi_s.data_ptr(), o2.data_ptr(),
+            pay.data_ptr(), m, rank.data_ptr(), still.data_ptr(),
+            scratch.data_ptr())
     return still, scratch[-1]
 
 
-def heads_compact_plain(hi_s, lo, o1, o2, uidx, rank):
+def heads_compact_plain(hi_s, pay, o2, rank):
     """K13's compact form's plain version."""
-    perm = o1[o2]
-    m = uidx.shape[0]
-    pos = torch.arange(m, device=uidx.device)
+    pos_s, hall = _pay_sorted(hi_s, pay, o2)
+    m = hi_s.shape[0]
+    pos = torch.arange(m, device=hi_s.device)
     r1s = hi_s >> 32
-    h1 = _heads(r1s)
-    hall = _heads(hi_s, lo[perm])
-    s1 = torch.cummax(torch.where(h1, pos, -1), 0).values
+    s1 = torch.cummax(torch.where(_heads(r1s), pos, -1), 0).values
     sall = torch.cummax(torch.where(hall, pos, -1), 0).values
-    uidx_s = uidx[perm]
-    rank[uidx_s] = r1s + (sall - s1)
-    nxt = torch.ones_like(hall)
-    nxt[:-1] = hall[1:]
-    still = uidx_s[~(hall & nxt)]
-    return still, torch.tensor(still.shape[0], device=uidx.device)
+    rank[pos_s] = r1s + (sall - s1)
+    still = pos_s[_unresolved(hall)]
+    return still, torch.tensor(still.shape[0], device=hi_s.device)
 
 
 def _rank_pairs(key_hi, key_lo):
     """Sort the rows by (key_hi, key_lo) and rank them (K13's full form):
-    (rank, unresolved mask, count)."""
-    hi_s, o1, o2 = _sort_pairs(key_hi, key_lo)
-    return heads_full(hi_s, key_lo, o1, o2)
+    (rank, the unresolved positions, their count)."""
+    return heads_full(*_sort_rows(key_hi, key_lo))
 
 
-def _refine(rank: torch.Tensor, mask: torch.Tensor, cnt, k: int, n: int,
+def _refine(rank: torch.Tensor, still: torch.Tensor, cnt, k: int, n: int,
             left: list | None = None):
     """Quadrupling rounds from ranks resolved to step ``k`` (``cnt``
-    positions unresolved): full rounds while more than n/4 of the n
-    positions are unresolved, then rounds over the unresolved positions
-    only.  Returns the final ranks; each round's unresolved count is
-    appended to ``left`` when given."""
+    positions unresolved, the first ``cnt`` of ``still`` in any order):
+    full rounds while more than n/4 of the n positions are unresolved,
+    then rounds over the unresolved positions only.  Returns the final
+    ranks; each round's unresolved count is appended to ``left`` when
+    given."""
     cnt = int(cnt)
     m1 = min(n, max(4096, n // 4))
     while cnt > m1 and k < 2 * n:
         keys = round_keys(rank, k)
-        del rank, mask
-        rank, mask, cnt = _rank_pairs(*keys)
+        del rank, still
+        rank, still, cnt = _rank_pairs(*keys)
         del keys
         cnt = int(cnt)
         if left is not None:
             left.append(cnt)
         k *= 4
-    uidx = torch.nonzero(mask)[:, 0]
-    del mask
+    uidx = still[:cnt]
+    del still
     while uidx.numel() > 0 and k < 2 * n:
         key_a, key_b = round_keys(rank, k, uidx)
-        hi_s, o1, o2 = _sort_pairs(key_a, key_b)
-        still, cnt = heads_compact(hi_s, key_b, o1, o2, uidx, rank)
+        still, cnt = heads_compact(*_sort_rows(key_a, key_b, uidx), rank)
         uidx = still[:int(cnt)]
         if left is not None:
             left.append(uidx.numel())
@@ -388,8 +432,8 @@ def _sa_of(rank: torch.Tensor) -> torch.Tensor:
 def suffix_ranks(data: torch.Tensor) -> torch.Tensor:
     """Position-ordered suffix ranks (ISA) of u8[n], n >= 1, by prefix
     quadrupling."""
-    rank, mask, cnt = _rank_pairs(*boot_keys(data))
-    return _refine(rank, mask, cnt, _BOOT_DEPTH, data.shape[0])
+    return _refine(*_rank_pairs(*boot_keys(data)), _BOOT_DEPTH,
+                   data.shape[0])
 
 
 def suffix_array(data: torch.Tensor):
@@ -426,8 +470,7 @@ def suffix_array(data: torch.Tensor):
 def _dc3_sample_rank(data: torch.Tensor, m: int) -> torch.Tensor:
     """All-distinct group-start ranks of the m sample suffixes, in slot
     order."""
-    rank, mask, cnt = _rank_pairs(*boot_keys(data, sample=True))
-    return _refine(rank, mask, cnt, 10, m)
+    return _refine(*_rank_pairs(*boot_keys(data, sample=True)), 10, m)
 
 
 def _merge_class_sort(k_char, k_rank, pay, own):
@@ -517,12 +560,10 @@ def suffix_array_dc3(data: torch.Tensor):
     return _sa_of(rank), rank
 
 
-def extract(data: torch.Tensor, rank: torch.Tensor, r: int):
-    """K14: U + primary + aux from the all-distinct position-order ranks of
-    u8[n], n >= 2, with no suffix array; ``r`` is the aux sampling rate.
-    Suffix i != 0 of rank j writes T[i - 1] to U[j + (j < r0)] (r0 =
-    rank[0]), suffix 0 writes T[n - 1] to U[0]; primary = r0 + 1 (a 0-dim
-    int64 tensor); aux[t] = rank[(t + 1) r] as int32."""
+_BUCKET = 1 << 16  # K14's slots of U a bucket (kBucket in csrc/bwt_sort.cu)
+
+
+def _extract_inputs(data: torch.Tensor, rank: torch.Tensor, r: int):
     data = data.contiguous()
     _vec("extract", data, torch.uint8)
     _vec("extract", rank, torch.int64)
@@ -531,16 +572,21 @@ def extract(data: torch.Tensor, rank: torch.Tensor, r: int):
     if rank.shape[0] != n or n < 2 or r < 1:
         raise ValueError("extract: a rank a byte, at least 2 bytes, and a "
                          f"rate of at least 1 (got {r})")
+    return data, n
+
+
+def extract(data: torch.Tensor, rank: torch.Tensor, r: int):
+    """K14: U + primary + aux from the all-distinct position-order ranks of
+    u8[n], n >= 2, with no suffix array; ``r`` is the aux sampling rate.
+    Suffix i != 0 of rank j writes T[i - 1] to U[j + (j < r0)] (r0 =
+    rank[0]), suffix 0 writes T[n - 1] to U[0]; primary = r0 + 1 (a 0-dim
+    int64 tensor); aux[t] = rank[(t + 1) r] as int32.  On CUDA two
+    passes: :func:`extract_bins`, then :func:`extract_place`."""
+    data, _ = _extract_inputs(data, rank, r)
     if data.device.type == "cpu":
         return extract_plain(data, rank, r)
-    dev = data.device
-    n_aux = (n - 1) // r
-    U = torch.empty(n, dtype=torch.uint8, device=dev)
-    primary = torch.empty((), dtype=torch.int64, device=dev)
-    aux = torch.empty(n_aux, dtype=torch.int32, device=dev)
-    _launch("bwt_extract", dev, data.data_ptr(), rank.data_ptr(), n, r,
-            n_aux, U.data_ptr(), primary.data_ptr(), aux.data_ptr())
-    return U, primary, aux
+    stage, primary, aux = extract_bins(data, rank, r)
+    return extract_place(stage), primary, aux
 
 
 def extract_plain(data: torch.Tensor, rank: torch.Tensor, r: int):
@@ -554,6 +600,66 @@ def extract_plain(data: torch.Tensor, rank: torch.Tensor, r: int):
     n_aux = (n - 1) // r
     aux = rank[(torch.arange(n_aux, device=data.device) + 1) * r]
     return U, r0 + 1, aux.to(torch.int32)
+
+
+def extract_bins(data: torch.Tensor, rank: torch.Tensor, r: int):
+    """K14's pass 1: (stage int32 [n], primary, aux).  Each suffix's byte
+    goes to U's slot d (suffix 0: d = 0, T[n - 1]; suffix i != 0 of rank
+    j: d = j + (j < r0), T[i - 1]) as the entry (d & 0xFFFF) << 8 | byte,
+    in the region of its bucket d >> 16: stage[b 2^16 + k] for k below
+    the bucket's min(2^16, n - b 2^16) slots, every slot of U one entry.
+    The kernel's order within a bucket is whatever its blocks' atomics
+    gave; the plain version's is by slot."""
+    data, n = _extract_inputs(data, rank, r)
+    if data.device.type == "cpu":
+        return extract_bins_plain(data, rank, r)
+    dev = data.device
+    n_aux = (n - 1) // r
+    cursor = torch.zeros(-(-n // _BUCKET), dtype=torch.int32, device=dev)
+    stage = torch.empty(n, dtype=torch.int32, device=dev)
+    primary = torch.empty((), dtype=torch.int64, device=dev)
+    aux = torch.empty(n_aux, dtype=torch.int32, device=dev)
+    _launch("bwt_extract_bins", dev, data.data_ptr(), rank.data_ptr(), n, r,
+            n_aux, cursor.data_ptr(), stage.data_ptr(), primary.data_ptr(),
+            aux.data_ptr())
+    return stage, primary, aux
+
+
+def extract_bins_plain(data: torch.Tensor, rank: torch.Tensor, r: int):
+    """K14's pass 1's plain version."""
+    n = data.shape[0]
+    r0 = rank[0]
+    d = rank + (rank < r0).long()
+    d[0] = 0
+    stage = torch.empty(n, dtype=torch.int32, device=data.device)
+    stage[d] = ((d & (_BUCKET - 1)) << 8 | torch.roll(data, 1).long()).to(
+        torch.int32)
+    n_aux = (n - 1) // r
+    aux = rank[(torch.arange(n_aux, device=data.device) + 1) * r]
+    return stage, r0 + 1, aux.to(torch.int32)
+
+
+def extract_place(stage: torch.Tensor) -> torch.Tensor:
+    """K14's pass 2: U u8 [n] from :func:`extract_bins`' stage, each
+    bucket's bytes placed at their slots."""
+    _vec("extract_place", stage, torch.int32)
+    if stage.device.type == "cpu":
+        return extract_place_plain(stage)
+    n = int(stage.shape[0])
+    U = torch.empty(n, dtype=torch.uint8, device=stage.device)
+    if n:
+        _launch("bwt_extract", stage.device, stage.data_ptr(), n,
+                U.data_ptr())
+    return U
+
+
+def extract_place_plain(stage: torch.Tensor) -> torch.Tensor:
+    """K14's pass 2's plain version."""
+    n = stage.shape[0]
+    lo = torch.arange(n, device=stage.device) & ~(_BUCKET - 1)
+    U = torch.empty(n, dtype=torch.uint8, device=stage.device)
+    U[lo + (stage.long() >> 8)] = (stage & 0xFF).to(torch.uint8)
+    return U
 
 
 def bwt_encode(data: torch.Tensor):

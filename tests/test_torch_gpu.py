@@ -730,17 +730,20 @@ def test_decompress_batch_keeps_fresh_buffers_on_cuda(cuda, monkeypatch):
     assert [P.decompress(b) for b in blobs] == blocks
 
 
-_SORT = ("bwt_boot_keys", "bwt_round_keys", "bwt_heads", "bwt_extract")
+_SORT = ("bwt_boot_keys", "bwt_round_keys", "bwt_heads_pay", "bwt_heads",
+         "bwt_extract_bins", "bwt_extract")
 
 
 @pytest.mark.parametrize("case", ["text", "zeros", "periodic",
                                   "high-entropy", "2", "3", "17", "255",
-                                  "1023", "1025", "2047", "2049", "4096"])
+                                  "1023", "1025", "2047", "2049", "4096",
+                                  "8193", "65537", "208953"])
 def test_sort_kernels_equal_plain_and_native(cuda, case):
     """K11-K14 on one block through chip_smoke.check_sort: every kernel
     call of the wide-aux BWT and of DC3 held to its plain version on the
     same inputs, U, the primary and the aux indexes to the native BWT's;
-    K13's tile is 1,024 rows, K11's block 2,048."""
+    K13's tile is 1,024 rows, K11's block 2,048, K14's pass-1 block 8,192
+    and its bucket 65,536 slots."""
     from chip_smoke import check_sort, hard_blocks, periodic_block
 
     text = _text(1 << 20, 1400)
@@ -767,9 +770,9 @@ def test_forward_bwt_routes_launch_only_the_kernels(cuda, monkeypatch):
     def refuse(*a, **k):
         raise AssertionError("a plain step ran on the card")
 
-    for name in ("boot_keys_plain", "round_keys_plain", "heads_full_plain",
-                 "heads_compact_plain", "extract_plain", "_shifted",
-                 "_rank_mask_to_position_order"):
+    for name in ("boot_keys_plain", "round_keys_plain", "heads_pay_plain",
+                 "heads_full_plain", "heads_compact_plain", "extract_plain",
+                 "extract_bins_plain", "extract_place_plain", "_shifted"):
         monkeypatch.setattr(BW, name, refuse)
     monkeypatch.setattr(torch, "cummax", refuse)
     data = _text(300_000, 1401)
@@ -797,3 +800,42 @@ def test_forward_bwt_routes_launch_only_the_kernels(cuda, monkeypatch):
     assert torch.equal(sa[rank], torch.arange(len(data), device=cuda))
     assert all(BW.LAUNCHES[k] >= before[k] + 4 for k in _SORT
                if k != "bwt_round_keys")
+
+
+def test_sort_wrappers_hold_their_scratch_through_the_launch(cuda,
+                                                             monkeypatch):
+    """K13's and K14's wrappers zero their scratch (status words, tile
+    counter, count, cursors) with torch and hold it until the kernel is
+    queued.  Freed before, its memory could go to a tensor that another
+    thread (the CLI's device workers share the stream) fills before the
+    launch.  Here every launch is preceded by such tensors, of each
+    scratch's size, filled with words that read as final status or as a
+    cursor: the BWTs must still equal the native ones."""
+    from libbsc_tpu_torch import engine
+
+    launch = BW._launch
+
+    rows_at = {"bwt_heads_pay": 4, "bwt_heads": 4, "bwt_extract_bins": 2}
+
+    def crowded(name, dev, *args):
+        if name not in rows_at:
+            return launch(name, dev, *args)
+        m = args[rows_at[name]]
+        tiles = -(-m // 1024)
+        junk = [torch.full((k,), -(1 << 63), dtype=torch.int64, device=dev)
+                for k in (tiles + 2, 2 * tiles + 2)]
+        junk.append(torch.full((-(-m // (1 << 16)),), 4096,
+                               dtype=torch.int32, device=dev))
+        launch(name, dev, *args)
+        del junk
+
+    monkeypatch.setattr(BW, "_launch", crowded)
+    data = _text(300_000, 1402)
+    d = torch.from_numpy(np.frombuffer(data, np.uint8).copy()).to(cuda)
+    ref = np.frombuffer(data, np.uint8).copy()
+    primary, ni, idx = engine.bwt_encode(ref, 0)
+    for fn in (BW.bwt_encode, BW.bwt_encode_dc3):
+        U, p, aux = fn(d)
+        assert U.cpu().numpy().tobytes() == ref.tobytes()
+        assert int(p) == primary
+        np.testing.assert_array_equal(aux.cpu().numpy(), idx[:ni])

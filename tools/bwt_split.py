@@ -30,14 +30,18 @@ Each round (``boot``, ``full``, ``compact``) reports its parts in ms:
   round's ranks), ``count`` (``mask.sum()``, or the compact round's
   boolean selection of the still-unresolved positions, which syncs);
 - a tree with the sort's kernels (``bwt_sort.cu``): ``keys`` (K11 or
-  K12), ``sort1``, ``gather``, ``sort2``, ``heads`` (K13: heads, the
-  group-start scan, the scatters and the count);
+  K12), ``sort1``, ``gather`` (up to 34e0e9c; since, ``pay``: K13's
+  pre-pass, which took the gather over), ``sort2``, ``heads`` (K13's
+  main pass: heads, the group-start scan, the rank scatter, the mask or
+  the list, and the count);
 
 then ``host_read`` (the unresolved count read by the host, after a
 synchronize, host clock) and ``unresolved``.  ``nonzero`` is the switch
-from full to compact rounds (``torch.nonzero`` of the mask).  The
+from full to compact rounds (``torch.nonzero`` of the mask, or with the
+pre-pass the cut of the unresolved list).  The
 extraction reports ``roll``, ``sa_of``, ``gather`` and ``rest`` (torch
-ops), or ``extract`` (K14); a torch tree's ``suffix_array`` also builds a
+ops), or ``extract`` (K14 up to 34e0e9c), or ``bins`` and ``place``
+(K14's two passes); a torch tree's ``suffix_array`` also builds a
 suffix array that the BWT routes do not use (``sa_unused``).
 
 Each block is first sorted twice by the tree's own
@@ -255,13 +259,31 @@ def torch_rounds(bw, data, clock: Clock):
     return rank, rounds
 
 
+def _sorted_pay(bw, k_hi, k_lo, clock: Clock, uidx=None):
+    """A tree with K13's pre-pass: the first sort, the pre-pass, the
+    second sort."""
+    import torch
+
+    lo_s, o1 = torch.sort(k_lo, stable=True)
+    clock.mark("sort1")
+    hi1, pay = bw.heads_pay(lo_s, o1, k_hi, uidx)
+    clock.mark("pay")
+    del lo_s, o1
+    hi_s, o2 = torch.sort(hi1, stable=True)
+    clock.mark("sort2")
+    return hi_s, pay, o2
+
+
 def kernel_rounds(bw, data, clock: Clock):
-    """A tree with the sort's kernels (K11-K13), part by part.  Returns
+    """A tree with the sort's kernels (K11-K13), part by part: up to
+    34e0e9c the gather between the two sorts was torch's and K13 one
+    launch; since, K13's pre-pass takes the gather's place.  Returns
     (rank, rounds)."""
     import torch
 
     n = data.shape[0]
     rounds = []
+    pay = hasattr(bw, "heads_pay")
 
     def close(name, cnt_t, k):
         parts = clock.read()
@@ -270,13 +292,20 @@ def kernel_rounds(bw, data, clock: Clock):
                        "unresolved": cnt})
         return cnt
 
+    def full(k_hi, k_lo):
+        if pay:
+            out = bw.heads_full(*_sorted_pay(bw, k_hi, k_lo, clock))
+        else:
+            hi_s, o1, o2 = _sorted(k_hi, k_lo, clock)
+            out = bw.heads_full(hi_s, k_lo, o1, o2)
+        clock.mark("heads")
+        return out
+
     clock.start()
     k_hi, k_lo = bw.boot_keys(data)
     clock.mark("keys")
-    hi_s, o1, o2 = _sorted(k_hi, k_lo, clock)
-    rank, mask, cnt_t = bw.heads_full(hi_s, k_lo, o1, o2)
-    clock.mark("heads")
-    del k_hi, k_lo, hi_s, o1, o2
+    rank, left, cnt_t = full(k_hi, k_lo)
+    del k_hi, k_lo
     cnt = close("boot", cnt_t, bw._BOOT_DEPTH)
 
     k = bw._BOOT_DEPTH
@@ -285,22 +314,25 @@ def kernel_rounds(bw, data, clock: Clock):
         clock.start()
         key_a, key_b = bw.round_keys(rank, k)
         clock.mark("keys")
-        hi_s, o1, o2 = _sorted(key_a, key_b, clock)
-        rank, mask, cnt_t = bw.heads_full(hi_s, key_b, o1, o2)
-        clock.mark("heads")
-        del key_a, key_b, hi_s, o1, o2
+        rank, left, cnt_t = full(key_a, key_b)
+        del key_a, key_b
         cnt = close("full", cnt_t, k)
         k *= 4
     clock.start()
-    uidx = torch.nonzero(mask)[:, 0]
+    # since 34e0e9c the full form returns the list; before, the mask
+    uidx = left[:cnt] if pay else torch.nonzero(left)[:, 0]
     clock.mark("nonzero")
     rounds.append({"round": "nonzero", "parts": clock.read()})
     while uidx.numel() > 0 and k < 2 * n:
         clock.start()
         key_a, key_b = bw.round_keys(rank, k, uidx)
         clock.mark("keys")
-        hi_s, o1, o2 = _sorted(key_a, key_b, clock)
-        still, cnt_t = bw.heads_compact(hi_s, key_b, o1, o2, uidx, rank)
+        if pay:
+            still, cnt_t = bw.heads_compact(
+                *_sorted_pay(bw, key_a, key_b, clock, uidx), rank)
+        else:
+            hi_s, o1, o2 = _sorted(key_a, key_b, clock)
+            still, cnt_t = bw.heads_compact(hi_s, key_b, o1, o2, uidx, rank)
         clock.mark("heads")
         uidx = still[:close("compact", cnt_t, k)]
         k *= 4
@@ -329,9 +361,16 @@ def torch_extract(bw, data, rank, r: int, clock: Clock):
 
 
 def kernel_extract(bw, data, rank, r: int, clock: Clock):
+    """K14 as one launch (up to 34e0e9c), or its two passes apart."""
     clock.start()
-    out = bw.extract(data, rank, r)
-    clock.mark("extract")
+    if hasattr(bw, "extract_bins"):
+        stage, primary, aux = bw.extract_bins(data, rank, r)
+        clock.mark("bins")
+        out = (bw.extract_place(stage), primary, aux)
+        clock.mark("place")
+    else:
+        out = bw.extract(data, rank, r)
+        clock.mark("extract")
     return out, clock.read()
 
 
