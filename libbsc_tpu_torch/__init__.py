@@ -17,8 +17,14 @@ host filters in ``filters/``).
 Entry points run on the card unless the caller passes ``device="cpu"`` to
 :func:`init`; then each kernel's plain PyTorch version runs instead.
 ``TBSC_ENGINE=ops|tpu|numpy`` selects the JAX package's other engines
-(``engine``); ``TBSC_TRACE`` and ``TBSC_PROFILE`` trace the API's stages
-(``utils/trace``).
+(``engine``).
+
+Tracing (``utils/trace``): under any torch profiler the port records
+spans on every thread that runs a block (the CLI call, the farm and the
+decode pool, the API calls and their stages), and
+``utils.trace.spans()`` returns them; ``TBSC_PROFILE=<dir>`` writes a
+Chrome trace of every thread there (the CLI at exit);
+``TBSC_TRACE=1`` prints one line a stage.
 """
 
 from __future__ import annotations

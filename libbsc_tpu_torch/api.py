@@ -59,7 +59,7 @@ from .errors import BscError, corrupt
 from .ops import wide
 from .utils import bufpool
 from .utils.adler32 import adler32
-from .utils.trace import stage
+from .utils.trace import span, stage
 
 _ERROR_NAMES = {
     C.BAD_PARAMETER: "bad parameter",
@@ -87,7 +87,8 @@ def init(features: int = C.DEFAULT_FEATURES, device=None) -> int:
                        "the kernels' plain versions on the CPU")
     if dev.type not in ("cuda", "cpu"):
         raise BscError(C.BAD_PARAMETER, f"unsupported device {dev}")
-    engine.init(dev)
+    with span("api.init"):
+        engine.init(dev)
     _state["features"] = features
     _state["device"] = dev
     return C.NO_ERROR
@@ -139,6 +140,13 @@ def compress(data: bytes, lzp_hash_size: int = C.DEFAULT_LZPHASHSIZE,
              features: int | None = None) -> bytes:
     """bsc_compress: one block (header + payload); a stored block when the
     data is incompressible."""
+    with span("api.compress", len(data)):
+        return _compress(data, lzp_hash_size, lzp_min_len, block_sorter,
+                         coder, features)
+
+
+def _compress(data: bytes, lzp_hash_size: int, lzp_min_len: int,
+              block_sorter: int, coder: int, features: int | None) -> bytes:
     _ensure_init()
     mode = pack_mode(block_sorter, coder, lzp_hash_size, lzp_min_len)
     if mode < 0:
@@ -151,7 +159,8 @@ def compress(data: bytes, lzp_hash_size: int = C.DEFAULT_LZPHASHSIZE,
     features = _state["features"] if features is None else features
     device = _device_route(features)
     pinned = device is not None and device.type == "cuda"
-    adler_data = adler32(data)
+    with span("adler32", n):
+        adler_data = adler32(data)
     buf = np.frombuffer(data, dtype=np.uint8)
 
     lz = None
@@ -159,15 +168,17 @@ def compress(data: bytes, lzp_hash_size: int = C.DEFAULT_LZPHASHSIZE,
             buf, lzp_hash_size, lzp_min_len, features):
         mode &= 0xFF
     if mode != (mode & 0xFF):
-        with _stage("lzp_compress", n):
+        with _stage("lzp_compress", n) as sp:
             lz = engine.lzp_compress(
                 buf, lzp_hash_size, lzp_min_len, features,
                 out=bufpool.get("compress_lz", n + 1024, pinned))
+            sp.out = 0 if lz is None else len(lz)
         if lz is None:
             mode &= 0xFF
     if lz is None:
         lz = bufpool.get("compress_lz", n, pinned)
-        np.copyto(lz, buf)
+        with span("api.copy", n):
+            np.copyto(lz, buf)
     if len(lz) <= C.HEADER_SIZE:
         block_sorter = C.BLOCKSORTER_BWT
         mode = (mode & ~0x1F) | C.BLOCKSORTER_BWT
@@ -221,19 +232,23 @@ def compress(data: bytes, lzp_hash_size: int = C.DEFAULT_LZPHASHSIZE,
     tail_len = (5 if wideaux_r is not None else 1) + 4 * num_indexes
     if payload is None or len(payload) + tail_len >= n:
         return store(data)
-    if wideaux_r is not None:
-        # wide-aux tail: [i32 aux x K][u32 K][u8 255]
-        tail = np.asarray(indexes[:num_indexes], dtype="<i4").tobytes()
-        tail += struct.pack("<I", num_indexes) + b"\xff"
-    else:
-        tail = b""
-        if num_indexes > 0:
+    with span("api.assemble", len(payload) + tail_len):
+        if wideaux_r is not None:
+            # wide-aux tail: [i32 aux x K][u32 K][u8 255]
             tail = np.asarray(indexes[:num_indexes], dtype="<i4").tobytes()
-        tail += bytes([num_indexes])
-    payload = bytes(payload) + tail
-    header = pack_block_header(len(payload) + C.HEADER_SIZE, n, mode, index,
-                               adler_data, adler32(payload))
-    return header + payload
+            tail += struct.pack("<I", num_indexes) + b"\xff"
+        else:
+            tail = b""
+            if num_indexes > 0:
+                tail = np.asarray(indexes[:num_indexes],
+                                  dtype="<i4").tobytes()
+            tail += bytes([num_indexes])
+        payload = bytes(payload) + tail
+        with span("adler32", len(payload)):
+            adler_payload = adler32(payload)
+        header = pack_block_header(len(payload) + C.HEADER_SIZE, n, mode,
+                                   index, adler_data, adler_payload)
+        return header + payload
 
 
 def _lzp_probe_pays(buf: np.ndarray, hash_size: int, min_len: int,
@@ -297,8 +312,11 @@ def _decode_to_sorter(block: bytes, expected_size: int | None,
         _raise(C.UNEXPECTED_EOB)
     if expected_size is not None and expected_size < h.data_size:
         _raise(C.UNEXPECTED_EOB)
-    payload = bytes(block[C.HEADER_SIZE: h.block_size])
-    if h.adler32_payload != adler32(payload):
+    with span("api.copy", h.block_size - C.HEADER_SIZE):
+        payload = bytes(block[C.HEADER_SIZE: h.block_size])
+    with span("adler32", len(payload)):
+        adler_payload = adler32(payload)
+    if h.adler32_payload != adler_payload:
         _raise(C.DATA_CORRUPT)
     if h.mode == 0:
         return payload
@@ -405,20 +423,26 @@ def _finish_decode(st) -> bytes:
             _raise(out)
     else:
         out = lz
-    result = out.tobytes()
-    if len(result) != h.data_size or h.adler32_data != adler32(result):
+    with span("api.copy", len(out)):
+        result = out.tobytes()
+    if len(result) != h.data_size:
+        _raise(C.DATA_CORRUPT)
+    with span("adler32", len(result)):
+        adler_data = adler32(result)
+    if h.adler32_data != adler_data:
         _raise(C.DATA_CORRUPT)
     return result
 
 
 def decompress(block: bytes, expected_size: int | None = None) -> bytes:
     """bsc_decompress: one block (header + payload)."""
-    _ensure_init()
-    st = _decode_to_sorter(block, expected_size, scratch=True)
-    if isinstance(st, bytes):
-        return st
-    _run_sorter(st)
-    return _finish_decode(st)
+    with span("api.decompress", len(block)):
+        _ensure_init()
+        st = _decode_to_sorter(block, expected_size, scratch=True)
+        if isinstance(st, bytes):
+            return st
+        _run_sorter(st)
+        return _finish_decode(st)
 
 
 def decompress_batch(blocks: list) -> list:

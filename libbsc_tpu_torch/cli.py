@@ -22,6 +22,7 @@ order) are host code, as in the reference.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import queue
 import struct
@@ -34,6 +35,7 @@ import numpy as np
 
 from . import api, constants as C
 from .filters import detectors, preprocessing
+from .utils import trace
 
 FILE_SIGN = b"bsc1"
 BLOCK_HEADER_FMT = "<qbb"  # blockOffset, recordSize, sortingContexts
@@ -104,23 +106,25 @@ def _init(p: Params, device) -> None:
 def _compress_one(p: Params, data: bytes):
     """Filters + compress one block; returns (record_size, contexts, blob)."""
     record_size = 1
-    buf = np.frombuffer(data, dtype=np.uint8)
-    if p.reordering:
-        rs = detectors.detect_recordsize(buf)
-        if rs > 1:
-            buf = buf.copy()
-            preprocessing.reorder_forward(buf, rs)
-            record_size = rs
-    contexts = p.sorting_contexts
-    if contexts == C.CONTEXTS_AUTODETECT:
-        contexts = detectors.detect_contextsorder(buf)
-    if contexts == C.CONTEXTS_PRECEDING:
-        buf = buf[::-1]
+    with trace.span("cli.prepare", len(data)):
+        buf = np.frombuffer(data, dtype=np.uint8)
+        if p.reordering:
+            rs = detectors.detect_recordsize(buf)
+            if rs > 1:
+                buf = buf.copy()
+                preprocessing.reorder_forward(buf, rs)
+                record_size = rs
+        contexts = p.sorting_contexts
+        if contexts == C.CONTEXTS_AUTODETECT:
+            contexts = detectors.detect_contextsorder(buf)
+        if contexts == C.CONTEXTS_PRECEDING:
+            buf = buf[::-1]
+        block = buf.tobytes()
 
     hs = p.lzp_hash_size if p.lzp else 0
     ml = p.lzp_min_len if p.lzp else 0
     try:
-        blob = api.compress(buf.tobytes(), hs, ml, p.block_sorter, p.coder,
+        blob = api.compress(block, hs, ml, p.block_sorter, p.coder,
                             p.features())
     except api.BscError as e:
         if e.code != C.NOT_COMPRESSIBLE:
@@ -128,6 +132,17 @@ def _compress_one(p: Params, data: bytes):
         blob = api.store(data)  # the format's own fallback: a stored block
         record_size, contexts = 1, C.CONTEXTS_FOLLOWING
     return record_size, contexts, blob
+
+
+@contextlib.contextmanager
+def _open_pair(inp: str, outp: str):
+    """The input file and the output file, opened in a ``cli.open`` span
+    (opening an output that exists truncates it, which frees its pages)."""
+    with contextlib.ExitStack() as files:
+        with trace.span("cli.open"):
+            f = files.enter_context(open(inp, "rb"))
+            out = files.enter_context(open(outp, "wb"))
+        yield f, out
 
 
 def _read_blocks(f, block_size: int, segmentation: bool):
@@ -139,7 +154,9 @@ def _read_blocks(f, block_size: int, segmentation: bool):
     offset = 0
     if not segmentation:
         while True:
-            data = f.read(block_size)
+            with trace.span("cli.read", offset=offset) as sp:
+                data = f.read(block_size)
+                sp.nbytes = len(data)
             if not data:
                 return
             yield offset, data
@@ -155,7 +172,9 @@ def _read_blocks(f, block_size: int, segmentation: bool):
             pending = pending[size:]
             continue
         if not at_eof and len(pending) < block_size:
-            chunk = f.read(block_size - len(pending))
+            with trace.span("cli.read", offset=offset) as sp:
+                chunk = f.read(block_size - len(pending))
+                sp.nbytes = len(chunk)
             if not chunk:
                 at_eof = True
             pending += chunk
@@ -183,16 +202,21 @@ def _device_farm(p: Params, blocks, emit) -> None:
     jobs: queue.Queue = queue.Queue(maxsize=8)
     done = object()
     errors: list = []
+    call = trace.current()
 
     def worker(q: Params):
+        route = "device" if q.gpu else "host"
         while True:
-            item = jobs.get()
+            with trace.span("farm.wait", tag=route, parent=call):
+                item = jobs.get()
             if item is done:
                 jobs.put(done)
                 return
             offset, data = item
             try:
-                emit(offset, *_compress_one(q, data))
+                with trace.span("farm.block", len(data), offset, route,
+                                call):
+                    emit(offset, *_compress_one(q, data))
             except BaseException as e:  # handed to the main thread
                 errors.append(e)
                 # drain, so that a producer blocked on the queue wakes up
@@ -209,7 +233,8 @@ def _device_farm(p: Params, blocks, emit) -> None:
     params = [p] * DEVICE_WORKERS + [p.copy(gpu=False)]
     try:
         with ThreadPoolExecutor(max_workers=len(params)) as ex:
-            futs = [ex.submit(worker, q) for q in params]
+            with trace.span("cli.farm_start"):
+                futs = [ex.submit(worker, q) for q in params]
             for item in blocks:
                 while not errors:
                     try:
@@ -220,8 +245,10 @@ def _device_farm(p: Params, blocks, emit) -> None:
                 if errors:
                     break
             jobs.put(done)
-            for fut in futs:
-                fut.result()
+            with trace.span("cli.farm_join"):
+                for fut in futs:
+                    fut.result()
+                ex.shutdown()
     finally:
         if bwt_prev is None:
             os.environ.pop("TBSC_BWT_DEVICE", None)
@@ -236,7 +263,13 @@ def compress_file(inp: str, outp: str, p: Params, quiet: bool = False,
     """Compress the file ``inp`` into the archive ``outp``.  With -G
     (``p.gpu``) the stages run on ``device`` (None: CUDA, which must be
     present; "cpu": the kernels' plain versions); without it on the
-    host."""
+    host.  The call is the root span ``cli.compress_file``."""
+    with trace.span("cli.compress_file"):
+        _compress_file(inp, outp, p, quiet, device)
+
+
+def _compress_file(inp: str, outp: str, p: Params, quiet: bool,
+                   device) -> None:
     t0 = time.time()
     in_size = os.path.getsize(inp)
     block_size = min(p.block_size, in_size) if in_size > 0 else p.block_size
@@ -244,7 +277,7 @@ def compress_file(inp: str, outp: str, p: Params, quiet: bool = False,
     p, farm_workers = _apply_farm_policy(p, n_blocks)
     _init(p, device)
 
-    with open(inp, "rb") as f, open(outp, "wb") as out:
+    with _open_pair(inp, outp) as (f, out):
         out.write(FILE_SIGN)
         out.write(struct.pack("<i", n_blocks))
         out_size = 8
@@ -260,14 +293,19 @@ def compress_file(inp: str, outp: str, p: Params, quiet: bool = False,
                     print(f"\rCompressing {inp}"
                           f"({100 * done // max(in_size, 1):02d}%)",
                           end="", flush=True)
-                out.write(struct.pack(BLOCK_HEADER_FMT, offset, rs, ctx))
-                out.write(blob)
+                with trace.span("cli.write", len(blob), offset):
+                    out.write(struct.pack(BLOCK_HEADER_FMT, offset, rs,
+                                          ctx))
+                    out.write(blob)
                 out_size += BLOCK_HEADER_SIZE + len(blob)
                 done = max(done, offset)
 
+        call = trace.current()
+
         def job(item):
             offset, data = item
-            return (offset, *_compress_one(p, data))
+            with trace.span("pool.block", len(data), offset, parent=call):
+                return (offset, *_compress_one(p, data))
 
         blocks = _read_blocks(f, block_size, p.segmentation)
         if p.gpu and p.parallel:
@@ -289,11 +327,18 @@ def compress_file(inp: str, outp: str, p: Params, quiet: bool = False,
 def decompress_file(inp: str, outp: str, p: Params, quiet: bool = False,
                     device=None) -> None:
     """Restore the archive ``inp`` into the file ``outp``; -G and
-    ``device`` as for :func:`compress_file`."""
+    ``device`` as for :func:`compress_file`.  The call is the root span
+    ``cli.decompress_file``."""
+    with trace.span("cli.decompress_file"):
+        _decompress_file(inp, outp, p, quiet, device)
+
+
+def _decompress_file(inp: str, outp: str, p: Params, quiet: bool,
+                     device) -> None:
     t0 = time.time()
     in_size = os.path.getsize(inp)
 
-    with open(inp, "rb") as f, open(outp, "wb") as out:
+    with _open_pair(inp, outp) as (f, out):
         if f.read(4) != FILE_SIGN:
             print("This is not a valid bsc archive!", file=sys.stderr)
             sys.exit(1)
@@ -305,44 +350,55 @@ def decompress_file(inp: str, outp: str, p: Params, quiet: bool = False,
             # reads to EOF like the reference (bsc.cpp:507-520): nBlocks is
             # advisory (segmentation may change the block count)
             while True:
-                bh = f.read(BLOCK_HEADER_SIZE)
-                if len(bh) == 0:
-                    return
-                if len(bh) < BLOCK_HEADER_SIZE:
-                    print("Unexpected end of file!", file=sys.stderr)
-                    sys.exit(1)
-                offset, rs, ctx = struct.unpack(BLOCK_HEADER_FMT, bh)
-                if rs < 1 or ctx not in (C.CONTEXTS_FOLLOWING,
-                                         C.CONTEXTS_PRECEDING):
-                    print("This is not bsc archive or invalid compression "
-                          "method!", file=sys.stderr)
-                    sys.exit(2)
-                header = f.read(C.HEADER_SIZE)
-                block_size, _ = api.block_info(header)
-                payload = f.read(block_size - C.HEADER_SIZE)
-                yield offset, rs, ctx, header + payload
+                with trace.span("cli.read") as sp:
+                    bh = f.read(BLOCK_HEADER_SIZE)
+                    if len(bh) == 0:
+                        return
+                    if len(bh) < BLOCK_HEADER_SIZE:
+                        print("Unexpected end of file!", file=sys.stderr)
+                        sys.exit(1)
+                    offset, rs, ctx = struct.unpack(BLOCK_HEADER_FMT, bh)
+                    if rs < 1 or ctx not in (C.CONTEXTS_FOLLOWING,
+                                             C.CONTEXTS_PRECEDING):
+                        print("This is not bsc archive or invalid "
+                              "compression method!", file=sys.stderr)
+                        sys.exit(2)
+                    header = f.read(C.HEADER_SIZE)
+                    block_size, _ = api.block_info(header)
+                    payload = f.read(block_size - C.HEADER_SIZE)
+                    blob = header + payload
+                    sp.offset, sp.nbytes = offset, len(blob)
+                yield offset, rs, ctx, blob
+
+        call = trace.current()
 
         def job(args):
             offset, rs, ctx, blob = args
-            data = api.decompress(blob)
-            if ctx == C.CONTEXTS_PRECEDING:
-                data = data[::-1]
-            if rs > 1:
-                arr = np.frombuffer(data, dtype=np.uint8).copy()
-                preprocessing.reorder_reverse(arr, rs)
-                data = arr.tobytes()
+            with trace.span("pool.block", len(blob), offset, parent=call):
+                data = api.decompress(blob)
+                if ctx == C.CONTEXTS_PRECEDING:
+                    data = data[::-1]
+                if rs > 1:
+                    arr = np.frombuffer(data, dtype=np.uint8).copy()
+                    preprocessing.reorder_reverse(arr, rs)
+                    data = arr.tobytes()
             return offset, data
 
         total = 0
         with ThreadPoolExecutor(max_workers=farm_workers) as ex:
-            for b, (offset, data) in enumerate(ex.map(job, read_jobs())):
-                if not quiet and n_blocks > 0:
-                    print(f"\rDecompressing {inp}"
-                          f"({100 * b // n_blocks:02d}%)", end="",
-                          flush=True)
-                out.seek(offset)
-                out.write(data)
-                total += len(data)
+            with trace.span("cli.pool_start"):
+                results = ex.map(job, read_jobs())
+            with trace.span("cli.pool_join"):
+                for b, (offset, data) in enumerate(results):
+                    if not quiet and n_blocks > 0:
+                        print(f"\rDecompressing {inp}"
+                              f"({100 * b // n_blocks:02d}%)", end="",
+                              flush=True)
+                    with trace.span("cli.write", len(data), offset):
+                        out.seek(offset)
+                        out.write(data)
+                    total += len(data)
+                ex.shutdown()
         if not quiet:
             print("\r", end="")
 
@@ -484,6 +540,7 @@ def main(argv=None):
     argv = argv if argv is not None else sys.argv
     p = parse_args(argv)
     mode, inp, outp = argv[1], argv[2], argv[3]
+    trace.start_profiler()  # TBSC_PROFILE: written below, however it ends
     try:
         if mode == "e":
             compress_file(inp, outp, p)
@@ -494,6 +551,10 @@ def main(argv=None):
             e.code, "Internal program error, please contact the author!"),
             file=sys.stderr)
         sys.exit(2)
+    finally:
+        path = trace.stop_profiler()
+        if path is not None:
+            print(f"[tbsc] profile: {path}", file=sys.stderr)
 
 
 if __name__ == "__main__":

@@ -22,6 +22,8 @@ again: callers keep at most one live view per slot (the pipeline uses
 distinct slot names per overlapping lifetime), and nothing a caller of
 the API keeps may be a view of one.  A thread's slots are freed when the
 thread ends (a page-locked one goes back to torch's host allocator).
+Each allocation is a ``bufpool.alloc`` span (``utils/trace``) of the
+buffer's bytes, tagged ``pinned`` or ``pageable``.
 """
 
 from __future__ import annotations
@@ -30,6 +32,8 @@ import ctypes
 import threading
 
 import numpy as np
+
+from .trace import span
 
 _MADV_HUGEPAGE = 14
 _HUGE = 2 << 20
@@ -80,5 +84,7 @@ def get(slot: str, nbytes: int, pinned: bool = False) -> np.ndarray:
     ent = d.get(key)
     if ent is None or ent[1].shape[0] < nbytes:
         cap = max(1 << 20, nbytes + (nbytes >> 2))
-        ent = d[key] = (_alloc_pinned if pinned else _alloc)(cap)
+        with span("bufpool.alloc", cap, tag="pinned" if pinned
+                  else "pageable"):
+            ent = d[key] = (_alloc_pinned if pinned else _alloc)(cap)
     return ent[1][:nbytes]
