@@ -171,11 +171,17 @@ graph, so that a call of microseconds is not timed by its dispatch), their
 plain versions and K6's library call (torch.bincount) on the 25 MiB block,
 each launch on one of four copies in turn so that its input is not in the
 50 MB L2 cache; K6 also on an all-zero block, uniform random bytes and the
-text at offset 3, each of 25 MiB and held against its plain version.
+text at offset 3, each of 25 MiB and held against its plain version.  And
+K15, the LZP screen (time_lzp_screen), on the 25 MiB text block and a 25
+MiB block of log lines where LZP pays: its flags against its plain
+version's, the kernel (CUDA events, cold copies), the API's copy, screen
+and read back, the host LZP attempt it spares or precedes, and the plain
+version on the CPU; where it rules LZP out, the native LZP must reject
+the block.  Phase 3's encode must launch K15 once.
 
 The script prints each phase's wall seconds (the run-time line), a JSON
 line of per-kernel numbers (launches from the main path that runs the
-kernel: K1-K3 and K8-K14 phase 3, K4 and K5 phase 4, K6 and K7 phase 6;
+kernel: K1-K3 and K8-K15 phase 3, K4 and K5 phase 4, K6 and K7 phase 6;
 cli_launches of K1-K3 from phase 8's -m9 -e4 -G encode and decode,
 counted from several threads, so read as launched or not; farm_launches
 of K1-K3 from phase 9's farm: the one-process encode, the two ranks'
@@ -257,6 +263,8 @@ REPLACES = {  # kernel -> the Pallas kernel it replaces
     "bwt_heads": "libbsc_tpu/ops/bwt.py:120",
     "bwt_extract_bins": "libbsc_tpu/ops/bwt.py:754",
     "bwt_extract": "libbsc_tpu/ops/bwt.py:754",
+    # K15 replaces nothing: it spares the host its LZP attempt
+    "lzp_screen": "none",
 }
 V3 = ("wide_model", "wide_rans", "wide_decode")
 V2 = ("wide_rc_encode", "wide_decode_v2")
@@ -802,6 +810,7 @@ def main_path(data: bytes, features: int, composed: bytes, device,
 
     import libbsc_tpu_torch as P
     from libbsc_tpu_torch import constants as C
+    from libbsc_tpu_torch.ops import lzp_screen as Z
     from libbsc_tpu_torch.ops import wide_kernels as WK
 
     phase, coder = (3, "v3") if rans else (4, "v2")
@@ -815,8 +824,10 @@ def main_path(data: bytes, features: int, composed: bytes, device,
     torch.cuda.reset_peak_memory_stats()
     WK.reset_launches()
     reset_scan_launches()
+    Z.reset_launches()
     archive, t_enc = timed(lambda: P.compress(data, **kw))
     scan_enc, sort_enc = scan_launches(), sort_launches()
+    screened = Z.LAUNCHES["lzp_screen"]
     reset_scan_launches()
     back, t_dec = timed(lambda: P.decompress(archive))
     scan_dec, sort_dec = scan_launches(), sort_launches()
@@ -840,6 +851,10 @@ def main_path(data: bytes, features: int, composed: bytes, device,
              f" at least), or launched in the decode: encode {sort_enc}, "
              f"decode {sort_dec}")
     launches.update(sort_enc)
+    if screened != 1:
+        fail(f"{coder}: K15 launched {screened} times in the encode, not "
+             "once")
+    launches["lzp_screen"] = screened
     if archive != composed:
         fail(f"{coder}: the archive differs from the one composed from the "
              "stages")
@@ -1158,6 +1173,91 @@ def time_stats(data: bytes, device) -> list:
               f" ms a Python call (bound {b:.4f} ms by {by}), plain "
               f"{plain_ms:.4f} ms{lib}, {n} bytes", flush=True)
     return rows
+
+
+def lzp_pays_block(n_bytes: int) -> bytes:
+    """Log lines: 32 fixed texts of about 150 bytes, each line with two
+    fields drawn from a seed; the native LZP shortens such a block."""
+    rng = np.random.default_rng(0x15C)
+    heads = [b"host-%02d service=%s level=info msg=\"request handled\" "
+             b"path=/v1/%s/items method=GET status=200 proto=HTTP/1.1 "
+             b"agent=client/%d.%d " % (i, b"api-gateway-%d" % (i % 5),
+                                      b"tenant-%d" % i, i % 3, i)
+             for i in range(32)]
+    out = bytearray()
+    while len(out) < n_bytes:
+        for h, a, b in zip(rng.integers(0, 32, 4096),
+                           rng.integers(0, 10**6, 4096),
+                           rng.integers(0, 10**4, 4096)):
+            out += heads[h] + b"bytes=%d elapsed_us=%d\n" % (a, b)
+    return bytes(out[:n_bytes])
+
+
+def time_lzp_screen(data: bytes, device) -> list:
+    """Phase 2: K15 on the 25 MiB text block, where LZP is rejected, and
+    on a 25 MiB block where it pays (lzp_pays_block): its flags against
+    the plain version's, the kernel (CUDA events; each launch reads one of
+    COLD_COPIES copies), what the API waits for (engine.lzp_screen: the
+    page-locked slot's copy, the screen, the flags read back), the host
+    LZP attempt the screen spares or precedes, and the plain version on
+    the CPU.  Where every flag is 0 the native LZP must reject the
+    block."""
+    import torch
+
+    from libbsc_tpu_torch import constants as C
+    from libbsc_tpu_torch import engine
+    from libbsc_tpu_torch.ops import lzp_screen as Z
+    from libbsc_tpu_torch.utils import bufpool
+
+    ml, hs = C.DEFAULT_LZPMINLEN, C.DEFAULT_LZPHASHSIZE
+    features = C.FEATURE_MULTITHREADING | C.FEATURE_CUDA
+    row = {"name": "lzp_screen", "route": "cuda",
+           "source": "libbsc_tpu_torch/csrc/lzp_screen.cu",
+           "replaces": REPLACES["lzp_screen"], "library_ms": None}
+    for kind, block in (("text", data), ("pays", lzp_pays_block(len(data)))):
+        n = len(block)
+        buf = np.frombuffer(block, np.uint8)
+        x = torch.from_numpy(buf.copy()).to(device)
+        flags = Z.screen(x, ml).cpu()
+        t0 = time.perf_counter()
+        plain = Z.screen_plain(torch.from_numpy(buf.copy()), ml)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        if not torch.equal(flags, plain):
+            fail(f"lzp_screen differs from its plain version on the 25 MiB "
+                 f"{kind} block: {flags.tolist()} against {plain.tolist()}")
+        copies = [x] + [x.clone() for _ in range(COLD_COPIES - 1)]
+        turn = itertools.cycle(copies)
+        ms = cuda_ms(lambda: Z.screen(next(turn), ml), TIMED_LAUNCHES)
+        del copies, turn
+        slot = bufpool.get("compress_lz", n, pinned=True)
+        np.copyto(slot, buf)
+        call = [timed(lambda: engine.lzp_screen(slot, ml, device))[1]
+                for _ in range(3)]
+        host = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            lz = engine.lzp_compress(buf, hs, ml, features)
+            host.append((time.perf_counter() - t0) * 1e3)
+        if not flags.any() and lz is not None:
+            fail(f"lzp_screen ruled out LZP on the {kind} block, but LZP "
+                 f"shortened it to {len(lz)} bytes")
+        geo = Z.geometry(n, ml)
+        b, by = bound_ms(n + 16 * geo.total, 20 * geo.total)
+        key = "" if kind == "text" else "pays_"
+        row.update({f"{key}ms": ms, f"{key}call_ms": min(call),
+                    f"{key}host_lzp_ms": min(host),
+                    f"{key}flags": flags.tolist()})
+        if kind == "text":
+            row.update(plain_ms=plain_ms, plain_at_bytes=n, bound_ms=b,
+                       bound_by=by)
+        print(f"phase 2 time lzp_screen on {kind}: {ms:.4f} ms (bound "
+              f"{b:.4f} ms by {by}), flags {flags.tolist()}; the API's "
+              f"copy + screen + read back {'/'.join(f'{t:.3f}' for t in call)}"
+              f" ms; host LZP attempt {'/'.join(f'{t:.1f}' for t in host)} "
+              f"ms, {'rejected' if lz is None else f'{len(lz)} bytes'}; "
+              f"plain {plain_ms:.1f} ms, {n} bytes", flush=True)
+        del x
+    return [row]
 
 
 def scan_launches() -> dict:
@@ -2727,6 +2827,7 @@ def main() -> int:
     scan_rows = time_scan(st, device, clock_mhz)
     sort_rows = time_sort(st, device)
     stats_rows = time_stats(data, device)
+    screen_rows = time_lzp_screen(data, device)
     lap("2")
     composed = st["archive"]
     del st
@@ -2778,7 +2879,10 @@ def main() -> int:
             r["farm_launches"] = farm_launches[r["name"]]
     for r in stats_rows + scan_rows + sort_rows:
         r.update(checked[r["name"]], launches=launches[r["name"]])
-    print(json.dumps({"kernels": rows + stats_rows + scan_rows + sort_rows}))
+    for r in screen_rows:
+        r.update(launches=launches[r["name"]])
+    print(json.dumps({"kernels": rows + stats_rows + scan_rows + sort_rows
+                      + screen_rows}))
     print(smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -20,7 +20,11 @@ ST run on the port's native runtime.
 
 ``TBSC_LZP_PROBE=1`` makes blocks of 4 MiB or more skip LZP when three
 512 KiB sample windows gain nothing from it, as in the JAX package; the
-mode word records whether LZP ran.
+mode word records whether LZP ran.  On a device route a block of 1 MiB
+or more is first copied to the device and screened there
+(``engine.lzp_screen``): where no LZP part can take a match, the host
+attempt, which would be rejected, is skipped (the same mode word and
+bytes), and the fused route takes the device copy.
 
 Host buffers come from the per-thread pool (``utils/bufpool``) at the JAX
 package's slots: ``"compress_lz"`` (LZP's output or the raw block; page-
@@ -163,10 +167,24 @@ def _compress(data: bytes, lzp_hash_size: int, lzp_min_len: int,
         adler_data = adler32(data)
     buf = np.frombuffer(data, dtype=np.uint8)
 
-    lz = None
+    lz = block_d = None
     if mode != (mode & 0xFF) and not _lzp_probe_pays(
             buf, lzp_hash_size, lzp_min_len, features):
         mode &= 0xFF
+    if (mode != (mode & 0xFF) and device is not None
+            and n >= engine._DEVICE_MIN_BLOCK):
+        # the raw block goes to the device once: screened there, and kept
+        # for the fused route when no LZP match can occur
+        lz = bufpool.get("compress_lz", n, pinned)
+        with span("api.copy", n):
+            np.copyto(lz, buf)
+        with span("lzp_screen", n) as sp:
+            block_d, flags = engine.lzp_screen(lz, lzp_min_len, device)
+            sp.out, sp.tag = sum(flags), str(len(flags))
+        if any(flags):
+            lz = block_d = None
+        else:
+            mode &= 0xFF
     if mode != (mode & 0xFF):
         with _stage("lzp_compress", n) as sp:
             lz = engine.lzp_compress(
@@ -189,7 +207,8 @@ def _compress(data: bytes, lzp_hash_size: int, lzp_min_len: int,
             and coder == C.CODER_QLFC_WIDE and device is not None
             and wide.pick_lanes_policy(len(lz)) == wide.DEFAULT_LANES):
         with _stage("compress_block_device", len(lz)):
-            fused = engine.compress_block_device(lz, device)
+            fused = engine.compress_block_device(
+                lz if block_d is None else block_d, device)
         if fused is not None:
             index, num_indexes, indexes, wideaux_r, payload = fused
 

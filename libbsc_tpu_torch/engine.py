@@ -152,6 +152,19 @@ def lzp_compress(data: np.ndarray, hash_size: int, min_len: int,
     return None if rc < 0 else out[:rc]
 
 
+def lzp_screen(block: np.ndarray, min_len: int, device):
+    """The block copied to ``device``, and a flag for each of its LZP
+    parts, 1 where a match may occur (``ops/lzp_screen``, K15 on CUDA):
+    all 0 proves that :func:`lzp_compress` returns None for the block,
+    whatever the hash size.  From the API's page-locked ``"compress_lz"``
+    slot the copy runs asynchronously; reading the flags waits for it, so
+    the slot may be written when this returns."""
+    from .ops import lzp_screen as screen
+
+    block_d = torch.from_numpy(_as_c(block)).to(device, non_blocking=True)
+    return block_d, screen.screen(block_d, min_len).tolist()
+
+
 def lzp_decompress(data: np.ndarray, hash_size: int, min_len: int,
                    features: int, capacity: int,
                    out: np.ndarray | None = None):
@@ -435,13 +448,15 @@ def _copied(device):
     return event
 
 
-def compress_block_device(lz: np.ndarray, device):
+def compress_block_device(lz, device):
     """Fused device encode of BLOCKSORTER_BWT_WIDEAUX + CODER_QLFC_WIDE.
     Returns (index, num_indexes, indexes, r, payload), or None when the
     block takes the per-stage route (under 1 MiB, a schedule the device
     walker does not take, or a payload that is not smaller).
 
-    ``lz`` is copied to the card with ``non_blocking=True``: from the
+    ``lz`` is the block as ndarray, or as a u8 tensor already on
+    ``device`` (:func:`lzp_screen`'s copy), which is used as it is.  An
+    ndarray is copied to the card with ``non_blocking=True``: from the
     API's page-locked ``"compress_lz"`` slot the copy runs asynchronously,
     so an event recorded after it is waited on before returning, and the
     next call on this thread cannot overwrite the slot while the copy
@@ -453,8 +468,11 @@ def compress_block_device(lz: np.ndarray, device):
     from .ops import wide_kernels
 
     r = wideaux_rate(n)
-    lz_d = torch.from_numpy(_as_c(lz)).to(device, non_blocking=True)
-    copied = _copied(device)
+    if isinstance(lz, torch.Tensor):
+        lz_d, copied = lz, None
+    else:
+        lz_d = torch.from_numpy(_as_c(lz)).to(device, non_blocking=True)
+        copied = _copied(device)
     U, primary, aux = opsbwt.bwt_encode_wideaux_device(lz_d, r)
     payload = wide_kernels.device_encode_resident(U)
     if copied is not None:

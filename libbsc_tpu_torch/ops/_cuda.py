@@ -122,6 +122,9 @@ _SIGNATURES = {
                          [_VP, _VP, _L, _L, _L] + [_VP] * 5),
     "bwt_extract": ("bwt_sort", "bwt_extract_place_launch",
                     [_VP, _L, _VP, _VP]),
+    "lzp_screen": ("lzp_screen", "lzp_screen_launch",
+                   [_VP, _L, _L, _I, _I, ctypes.c_uint64, _I]
+                   + [_VP] * 4),
 }
 
 
