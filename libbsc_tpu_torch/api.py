@@ -24,7 +24,8 @@ mode word records whether LZP ran.  On a device route a block of 1 MiB
 or more is first copied to the device and screened there
 (``engine.lzp_screen``): where no LZP part can take a match, the host
 attempt, which would be rejected, is skipped (the same mode word and
-bytes), and the fused route takes the device copy.
+bytes), and the fused route, or the per-stage route's device BWT, takes
+the device copy.
 
 Host buffers come from the per-thread pool (``utils/bufpool``) at the JAX
 package's slots: ``"compress_lz"`` (LZP's output or the raw block; page-
@@ -174,7 +175,7 @@ def _compress(data: bytes, lzp_hash_size: int, lzp_min_len: int,
     if (mode != (mode & 0xFF) and device is not None
             and n >= engine._DEVICE_MIN_BLOCK):
         # the raw block goes to the device once: screened there, and kept
-        # for the fused route when no LZP match can occur
+        # for the fused route or the device BWT when no LZP match can occur
         lz = bufpool.get("compress_lz", n, pinned)
         with span("api.copy", n):
             np.copyto(lz, buf)
@@ -214,9 +215,10 @@ def _compress(data: bytes, lzp_hash_size: int, lzp_min_len: int,
 
     if payload is None:  # per-stage route: the sorter, then the coder
         if block_sorter == C.BLOCKSORTER_BWT:
-            with _stage("bwt_encode", len(lz)):
+            with _stage("bwt_encode", len(lz)) as sp:
+                sp.tag = engine.bwt_route(len(lz), device)
                 index, num_indexes, indexes = engine.bwt_encode(
-                    lz, features, device)
+                    lz, features, device, block_d)
         elif block_sorter == C.BLOCKSORTER_BWT_WIDEAUX:
             with _stage("bwt_encode_wideaux", len(lz)):
                 index, num_indexes, indexes, wideaux_r = \
@@ -243,10 +245,13 @@ def _compress(data: bytes, lzp_hash_size: int, lzp_min_len: int,
                 with _stage("coder_compress_wide", len(lz)):
                     payload = wide.wide_encode(lz.tobytes(), n_lanes=lanes)
         else:
-            with _stage("coder_compress", len(lz)):
+            with _stage("coder_compress", len(lz)) as sp:
                 payload = engine.coder_compress(
                     lz, coder, features,
                     out=bufpool.get("compress_coder", len(lz) + 4096))
+                sp.out = 0 if payload is None else len(payload)
+                sp.tag = _coder_tag(engine.coder_segments(len(lz)),
+                                    features)
 
     tail_len = (5 if wideaux_r is not None else 1) + 4 * num_indexes
     if payload is None or len(payload) + tail_len >= n:
@@ -268,6 +273,12 @@ def _compress(data: bytes, lzp_hash_size: int, lzp_min_len: int,
         header = pack_block_header(len(payload) + C.HEADER_SIZE, n, mode,
                                    index, adler_data, adler_payload)
         return header + payload
+
+
+def _coder_tag(segments: int, features: int) -> str:
+    """The QLFC coder spans' tag: its segments and the threads it is
+    given for them."""
+    return f"{segments} segments, {engine.num_threads(features)} threads"
 
 
 def _lzp_probe_pays(buf: np.ndarray, hash_size: int, min_len: int,
@@ -388,10 +399,13 @@ def _decode_to_sorter(block: bytes, expected_size: int | None,
     else:
         dst = (bufpool.get("decompress_lz", h.data_size + 4096)
                if scratch else None)
-        with _stage("coder_decompress", len(payload)):
+        with _stage("coder_decompress", len(payload)) as sp:
             lz = engine.coder_decompress(
                 np.frombuffer(payload, dtype=np.uint8), coder,
                 _state["features"], capacity=h.data_size + 4096, out=dst)
+            sp.out = 0 if isinstance(lz, int) else len(lz)
+            sp.tag = _coder_tag(payload[0] if payload else 0,
+                                _state["features"])
         if isinstance(lz, int):
             _raise(lz)
     if not (block_sorter in (C.BLOCKSORTER_BWT, C.BLOCKSORTER_BWT_WIDEAUX)
@@ -409,7 +423,11 @@ def _run_sorter(st) -> None:
         return
     h, lz = st["h"], st["lz"]
     if st["sorter"] == C.BLOCKSORTER_BWT:
-        with _stage("bwt_decode", len(lz)):
+        with _stage("bwt_decode", len(lz)) as sp:
+            route = engine.bwt_route(len(lz), st["device"], True)
+            # the native inverse interleaves its chains on one thread
+            sp.tag = (f"{route}, {st['num_indexes']} aux, "
+                      f"{int(route == 'host')} threads")
             rc = engine.bwt_decode(lz, h.index, st["num_indexes"],
                                    st["indexes"], _state["features"],
                                    st["device"])

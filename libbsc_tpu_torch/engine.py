@@ -43,6 +43,7 @@ import torch
 
 from . import constants as C
 from . import native
+from .utils.trace import span
 
 # Blocks below this size take the per-stage route (the JAX package's
 # device minimum, kept so both packages route blocks the same way).
@@ -197,7 +198,23 @@ def _checked(decode, capacity: int | None = None):
     return out
 
 
-def bwt_encode(data: np.ndarray, features: int, device=None):
+def bwt_route(n: int, device, inverse: bool = False) -> str:
+    """Where the default format's BWT (``inverse``: its inverse) of an
+    ``n``-byte block runs: ``numpy`` (``TBSC_ENGINE=numpy``: the torch
+    ops on the API's device), ``device`` (``ops/bwt`` on ``device``) or
+    ``host`` (the native runtime).  See :func:`bwt_encode` and
+    :func:`bwt_decode`."""
+    if _force == "numpy":
+        return "numpy"
+    if device is None or n < _DEVICE_MIN_BLOCK:
+        return "host"
+    if _forced(device) or (not inverse and os.environ.get(
+            "TBSC_BWT_DEVICE") == "1"):
+        return "device"
+    return "host"
+
+
+def bwt_encode(data: np.ndarray, features: int, device=None, data_d=None):
     """BWT in place.  Returns (index, num_indexes, indexes).
 
     With ``device`` (the FEATURE_CUDA route), ``TBSC_BWT_DEVICE=1`` (read
@@ -209,28 +226,34 @@ def bwt_encode(data: np.ndarray, features: int, device=None):
     function's name.  The JAX package pads the block to a size bucket
     (unless ``TBSC_BWT_PAD=0``) because XLA compiles a program per shape;
     torch compiles nothing per shape, so the exact shape is the only form
-    here and ``TBSC_BWT_PAD`` has nothing to switch.  Under
-    ``TBSC_ENGINE=ops|tpu`` the device route needs no ``TBSC_BWT_DEVICE``;
-    under ``numpy`` every block sorts through ``ops/bwt.bwt_encode`` on the
-    API's device, uncounted.  A device failure raises: there is no silent
+    here and ``TBSC_BWT_PAD`` has nothing to switch.  ``data_d``, where
+    given, is the block already on ``device`` (:func:`lzp_screen`'s
+    copy), used in place of a copy of ``data``; spans ``bwt.upload`` (the
+    copy, where there is one) and ``bwt.download`` (U and the aux
+    indexes back, which waits for the sort) time the route's copies.
+    Under ``TBSC_ENGINE=ops|tpu`` the device route needs no
+    ``TBSC_BWT_DEVICE``; under ``numpy`` every block sorts through
+    ``ops/bwt.bwt_encode`` on the API's device, uncounted.  A device failure raises: there is no silent
     host fallback.  Every other block sorts on the native runtime."""
     n = len(data)
-    if _force == "numpy":
+    where = bwt_route(n, device)
+    if where == "numpy":
         from .fallback import bwt
 
         return bwt.bwt_encode(data, _numpy_device())
-    if (device is not None and n >= _DEVICE_MIN_BLOCK
-            and (_forced(device)
-                 or os.environ.get("TBSC_BWT_DEVICE") == "1")):
+    if where == "device":
         from .ops import bwt as opsbwt
 
         route = ("bwt_encode_dc3"
                  if os.environ.get("TBSC_BWT", "").lower() == "dc3"
                  else "bwt_encode")
-        U, primary, aux = getattr(opsbwt, route)(
-            torch.from_numpy(_as_c(data)).to(device))
-        aux = aux.cpu().numpy()
-        data[:] = U.cpu().numpy()
+        if data_d is None:
+            with span("bwt.upload", n):
+                data_d = torch.from_numpy(_as_c(data)).to(device)
+        U, primary, aux = getattr(opsbwt, route)(data_d)
+        with span("bwt.download", n):
+            aux = aux.cpu().numpy()
+            torch.from_numpy(data).copy_(U)
         DEVICE_ROUTES[route] += 1
         return int(primary), int(aux.shape[0]), aux
     lib = native.load()
@@ -256,12 +279,13 @@ def bwt_decode(data: np.ndarray, index: int, num_indexes: int, indexes,
     block takes that list ranking on the API's device.  Other blocks take
     the native runtime."""
     n = len(data)
-    if _force == "numpy":
+    where = bwt_route(n, device, inverse=True)
+    if where == "numpy":
         from .fallback import bwt
 
         return bwt.bwt_decode(data, index, num_indexes, indexes,
                               _numpy_device())
-    if _forced(device) and n >= _DEVICE_MIN_BLOCK:
+    if where == "device":
         from .ops import bwt as opsbwt
 
         if not 0 < index <= n:
@@ -350,6 +374,18 @@ def st_decode_batch(arrays: list, k: int, indexes: list) -> int:
             if b is not a:
                 a[:] = b
     return rc
+
+
+def coder_segments(n: int) -> int:
+    """How many segments the QLFC coders cut an ``n``-byte block into,
+    each coded on a thread of its own (native/coder.cc)."""
+    if n < 256 * 1024:
+        return 1
+    if n < 4 * 1024 * 1024:
+        return 2
+    if n < 16 * 1024 * 1024:
+        return 4
+    return 8
 
 
 def coder_compress(data: np.ndarray, coder: int, features: int,

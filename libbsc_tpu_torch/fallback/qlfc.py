@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from ..engine import coder_segments
 from ..tables import TABLE_DIR
 
 NOT_COMPRESSIBLE = -3
@@ -844,16 +845,6 @@ def _qlfc_decode_block(data: bytes, kind: int) -> bytes:
     return _cm_decode(data, kind == 2)
 
 
-def _coder_num_blocks(n: int) -> int:
-    if n < 256 * 1024:
-        return 1
-    if n < 4 * 1024 * 1024:
-        return 2
-    if n < 16 * 1024 * 1024:
-        return 4
-    return 8
-
-
 def _split_blocks(data: bytes, n_blocks: int):
     n = len(data)
     arr = np.frombuffer(data, dtype=np.uint8)
@@ -877,7 +868,7 @@ def _split_blocks(data: bytes, n_blocks: int):
 def coder_compress(data: np.ndarray, kind: int):
     raw = data.tobytes()
     n = len(raw)
-    n_blocks = _coder_num_blocks(n)
+    n_blocks = coder_segments(n)
     if n_blocks == 1:
         r = _qlfc_encode_block(raw, n - 1, kind)
         if r is None:

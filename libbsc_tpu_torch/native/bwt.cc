@@ -842,13 +842,15 @@ int bwt_encode(u8* T, int n, u8* num_indexes, i32* indexes, int /*num_threads*/)
 static int unbwt_bigram(u8* T, int n, int index, int num_indexes,
                         const i32* indexes, int r) {
   const i32 nrows = n + 1;
-  i32* P2 = (i32*)halloc((size_t)nrows * sizeof(i32));
+  // a fresh table each call, not halloc's cached one (see hfresh)
+  const size_t p2_bytes = (size_t)nrows * sizeof(i32);
+  i32* P2 = (i32*)hfresh(p2_bytes);
   u32* bend = new (std::nothrow) u32[65536];
   u32* cur2 = new (std::nothrow) u32[65536];
   constexpr int FASTBITS = 17;
   uint16_t* fastbits = new (std::nothrow) uint16_t[(size_t)1 << FASTBITS];
   if (!P2 || !bend || !cur2 || !fastbits) {
-    hfree(P2); delete[] bend; delete[] cur2; delete[] fastbits;
+    hfresh_free(P2, p2_bytes); delete[] bend; delete[] cur2; delete[] fastbits;
     return -2;
   }
 
@@ -981,7 +983,7 @@ static int unbwt_bigram(u8* T, int n, int index, int num_indexes,
   if (K + 1 > 256) {
     ck_heap = new (std::nothrow) i32[(size_t)K + 1];
     if (!ck_heap) {
-      hfree(P2); delete[] bend; delete[] cur2; delete[] fastbits;
+      hfresh_free(P2, p2_bytes); delete[] bend; delete[] cur2; delete[] fastbits;
       return -2;
     }
     ck = ck_heap;
@@ -1029,7 +1031,7 @@ static int unbwt_bigram(u8* T, int n, int index, int num_indexes,
 
   if (prof) fprintf(stderr, "[unbwt] chase %.3f\n", nowsec() - t_chase0);
   delete[] ck_heap;
-  hfree(P2);
+  hfresh_free(P2, p2_bytes);
   delete[] bend;
   delete[] cur2;
   delete[] fastbits;

@@ -22,7 +22,8 @@ run's device trace:
   clock), the file call's span, the CLI (``cli_ms``), the host stages
   (``host_stage_ms``), the device stage's wall and the kernels, copies
   and sets that ran inside it (busy), and each span name's total over
-  the phase's calls, a call;
+  the phase's calls, a call, and the card's busy time inside the
+  spans of ``BUSY_IN`` (the default format's stages and the screen);
 - ``workers``: the blocks each farm route (``farm.block`` tag) took.
 
 The JSON goes to ``--out``.
@@ -40,6 +41,10 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 WAITS = {"farm.wait", "cli.farm_join", "cli.pool_join"}
+# stages whose device busy time the split reports (the card's kernels,
+# copies and sets inside their spans)
+BUSY_IN = {"lzp_screen", "bwt_encode", "bwt.upload", "bwt.download",
+           "coder_compress", "coder_decompress", "bwt_decode"}
 
 
 def main(argv=None) -> int:
@@ -158,9 +163,13 @@ def split(rec, trace, off: float, phase: str, ph) -> dict:
     busy = sum(trace.busy(s.start / 1e3 + off, s.end / 1e3 + off)
                for s in stage) / 1e3
     names: dict = {}
+    busy_in: dict = {}
     for s in rec:
         if s.call in ids and s.id not in ids:
             names[s.name] = names.get(s.name, 0) + (s.end - s.start) / 1e6
+            if s.name in BUSY_IN:
+                busy_in[s.name] = busy_in.get(s.name, 0) + trace.busy(
+                    s.start / 1e3 + off, s.end / 1e3 + off) / 1e3
     return {
         "calls": n,
         "mean_call_ms": 1e3 * statistics.fmean(c.seconds for c in ph.calls),
@@ -172,6 +181,7 @@ def split(rec, trace, off: float, phase: str, ph) -> dict:
         "device_stage_busy_ms": busy / max(n, 1),
         "lzp_wasted_ms": sp.lzp_wasted_ms() if phase == "encode" else None,
         "by_name_ms": {k: v / n for k, v in sorted(names.items())},
+        "busy_by_name_ms": {k: v / n for k, v in sorted(busy_in.items())},
     }
 
 
