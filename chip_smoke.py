@@ -116,8 +116,12 @@ Phases, one line or more each:
      blocks on the card (the farm hands each block to whichever worker
      takes it first, so the host worker may take a 25 MiB block: the
      count is printed; K11, K13 and K14 at least once a block sorted on
-     the card); then the device BWT route (counted, through K11-K14) and
-     the host BWT on one 25 MiB block, equal and each timed; (c)
+     the card); its decode with -G must restore the file, each block of
+     1 MiB or more inverted by K16 (DEVICE_ROUTES["bwt_decode"] and K16's
+     launch counters, set to 0 just before, must count one table, gaps
+     and write launch a block and its ranking's rounds: k16_launches);
+     then the device BWT route (counted, through K11-K14) and the host
+     BWT on one 25 MiB block, equal and each timed; (c)
      one subprocess each of `python3 -m libbsc_tpu_torch.cli e IN OUT -m9
      -e4 -G` and `d OUT R -G`: both must exit 0 and R must equal IN.
      Prints each file MB/s with the card's name and power limit.
@@ -143,11 +147,9 @@ Phases, one line or more each:
  10. the last modules (each variable and engine._force it sets is
      restored): (a) TBSC_ENGINE=ops (engine._force) on the 25 MiB block,
      default config, no FEATURE_CUDA: DEVICE_ROUTES must count one
-     bwt_encode and one bwt_decode (the list-ranking inverse), the
-     archive must equal the native engine's and come back; the list
-     ranking timed on the block's BWT against the native
-     tbsc_bwt_decode, in turns, with its peak device memory; -m9 -e4
-     under ops: K1-K3 launched, phase 3's archive; (b) TBSC_ENGINE=numpy
+     bwt_encode and one bwt_decode (K16 launched once), the archive must
+     equal the native engine's and come back; -m9 -e4 under ops: K1-K3
+     launched, phase 3's archive; (b) TBSC_ENGINE=numpy
      through `python3 -m libbsc_tpu_torch.cli` (under runpy, so each
      process prints whether it loaded the native runtime: it must not)
      on a 128 KiB file with -e0, -e1, -e2, -m5 and -e4, e then d: exit
@@ -177,12 +179,17 @@ MiB block of log lines where LZP pays: its flags against its plain
 version's, the kernel (CUDA events, cold copies), the API's copy, screen
 and read back, the host LZP attempt it spares or precedes, and the plain
 version on the CPU; where it rules LZP out, the native LZP must reject
-the block.  Phase 3's encode must launch K15 once.
+the block.  Phase 3's encode must launch K15 once.  And K16, the default
+format's inverse BWT (time_rulers): its four kernels on a 25 MiB block of
+each kind (the text, all zeros, a 1,000-byte period, random bytes), each
+held exactly against its plain version on the same inputs, timed with CUDA
+events, with the longest gap, K16 whole, the list ranking and the native
+inverse beside them.
 
 The script prints each phase's wall seconds (the run-time line), a JSON
 line of per-kernel numbers (launches from the main path that runs the
-kernel: K1-K3 and K8-K15 phase 3, K4 and K5 phase 4, K6 and K7 phase 6;
-cli_launches of K1-K3 from phase 8's -m9 -e4 -G encode and decode,
+kernel: K1-K3 and K8-K15 phase 3, K4 and K5 phase 4, K6 and K7 phase 6,
+K16 phase 8's -G default-config decode; cli_launches of K1-K3 from phase 8's -m9 -e4 -G encode and decode,
 counted from several threads, so read as launched or not; farm_launches
 of K1-K3 from phase 9's farm: the one-process encode, the two ranks'
 encodes summed from their lines, and the -G decode), the nvidia-smi
@@ -214,7 +221,14 @@ function K13 computes reads the sorted keys and the permutation and
 writes the ranks and a mask (41, k13_bound_ms).  K14's pass 1 reads the
 ranks and the block and writes the stage (13, and the aux indexes), its
 pass 2 reads the stage and writes U (5); the function reads the block and
-the ranks and writes U (10, k14_bound_ms).
+the ranks and writes U (10, k14_bound_ms).  K16's table kernel reads the
+sort's indices and writes its table (8 bytes a row each; 8 search steps
+a row); its first chase loads 8 bytes a row for two (g // 2 + 1 loads a
+gap of g) and writes a successor and a gap a node (12), its ranking reads
+and gathers 24 bytes a node and writes 12 in each round, its second chase
+loads ceil(g / 2) rows a gap, reads 20 bytes a node and writes the block;
+k16_bound_ms is the four summed.  Like K8's, its chases are bound by the
+latency of the longest gap's dependent loads, which no bytes count shows.
 """
 
 from __future__ import annotations
@@ -1817,6 +1831,141 @@ def time_scan(st: dict, device, clock_mhz: float) -> list:
     return rows
 
 
+def k16_blocks(text: np.ndarray, n: int) -> dict:
+    """K16's four kinds of block of n bytes: the text block, all zeros, a
+    random 1,000-byte period repeated, uniform random bytes."""
+    g = np.random.default_rng(1600)
+    return {"text": np.array(text[:n], np.uint8),
+            "zeros": np.zeros(n, np.uint8),
+            "periodic": np.resize(g.integers(0, 256, 1000, dtype=np.uint8),
+                                  n),
+            "random": g.integers(0, 256, n, dtype=np.uint8)}
+
+
+def time_rulers(text: np.ndarray, features: int, device) -> list:
+    """Phase 2 time of K16's four kernels (rulers_table, rulers_gaps,
+    rulers_rank with all its rounds, rulers_write) with CUDA events, on
+    each kind of 25 MiB block of k16_blocks (the text: the block as the
+    main path's LZP leaves it) through the device BWT at the format's aux
+    rate (ops/bwt.bwt_encode: U, primary, aux indexes).  On every kind
+    each kernel's output must equal its plain version's on the same
+    inputs (timed once), the block must come back with status 0, and the
+    native inverse must give it too.  The rows carry the text block's
+    numbers, each kind's beside them (``by_kind``: ms, the longest gap);
+    rulers_write's row also K16 whole (``unbwt_rulers.unbwt``: the sort,
+    the bucket ends and the four kernels), the sort alone, the list
+    ranking (``ops/bwt.bwt_decode``, the numpy engine's inverse) on the
+    card and the native inverse on the host, by kind."""
+    import torch
+
+    from libbsc_tpu_torch import engine
+    from libbsc_tpu_torch.ops import bwt
+    from libbsc_tpu_torch.ops import unbwt_rulers as K16
+
+    names = ("rulers_table", "rulers_gaps", "rulers_rank", "rulers_write")
+    rows = {name: {"name": name, "route": "cuda",
+                   "source": "libbsc_tpu_torch/csrc/unbwt_rulers.cu",
+                   "replaces": "none", "library_ms": None, "by_kind": {}}
+            for name in names}
+    for kind, data in k16_blocks(text, BLOCK).items():
+        n = len(data)
+        U, primary, aux = bwt.bwt_encode(torch.from_numpy(data).to(device))
+        primary, aux = int(primary), aux.cpu().numpy()
+        rows_h, offs = K16.start_rows(n, primary, aux)
+        srows = torch.from_numpy(rows_h).to(device)
+        offsets = torch.from_numpy(offs).to(device)
+        chars, u_sorted = torch.sort(U, stable=True)
+        ends = bwt.bucket_ends(chars)
+        del chars
+        pairs = K16.table(u_sorted, primary, ends, srows)
+        succ, gap = K16.gaps(pairs, n, srows)
+        rsucc, dist = K16.rank(succ, gap)
+        out = torch.empty(n, dtype=torch.uint8, device=device)
+        got, status = K16.write(pairs, ends, n, srows, offsets, rsucc, dist,
+                                gap, out=out)
+        if int(status) != 0 or not np.array_equal(got.cpu().numpy(), data):
+            fail(f"K16: the 25 MiB {kind} block did not come back")
+        nodes = int(succ.shape[0])
+        rounds = (nodes - 1).bit_length()
+        g = gap.cpu().numpy()
+        walks = g[g > 0]
+        # a walk of gap g loads g // 2 + 1 rows in the first chase (its
+        # last load finds the next ruler) and ceil(g / 2) in the second
+        loads1 = int((walks // 2 + 1).sum())
+        loads2 = int(((walks + 1) // 2).sum())
+        starts = int(srows.shape[0])
+        runs = {  # name -> (kernel, plain, kernel outputs, bytes, ops)
+            "rulers_table": (  # 8 search steps a row for its char
+                lambda: K16.table(u_sorted, primary, ends, srows),
+                lambda: K16.table_plain(u_sorted, primary, ends, srows),
+                (pairs,), 8 * n + 4 * 256 + 4 * starts + 8 * (n + 1),
+                8 * (n + 1)),
+            "rulers_gaps": (
+                lambda: K16.gaps(pairs, n, srows),
+                lambda: K16.gaps_plain(pairs, n, srows), (succ, gap),
+                8 * loads1 + 4 * starts + 12 * nodes, 0),
+            "rulers_rank": (  # a round reads and gathers 24, writes 12
+                lambda: K16.rank(succ, gap),
+                lambda: K16.rank_plain(succ, gap), (rsucc, dist),
+                36 * nodes * rounds, 0),
+            "rulers_write": (  # 8 search steps a row whose char is sought
+                lambda: K16.write(pairs, ends, n, srows, offsets, rsucc,
+                                  dist, gap, out=out),
+                lambda: K16.write_plain(pairs, ends, n, srows, offsets,
+                                        rsucc, dist, gap),
+                (got, status), 8 * loads2 + 4 * 256 + 12 * starts
+                + 20 * nodes + n, 8 * loads2),
+        }
+        line = []
+        for name, (kernel, plain, outs, nbytes, ops) in runs.items():
+            ms = cuda_ms(kernel, TIMED_LAUNCHES)
+            want, plain_ms = timed(plain)
+            want = want if isinstance(want, tuple) else (want,)
+            if any(not torch.equal(a.cpu(), b.cpu().to(a.dtype))
+                   for a, b in zip(outs, want)):
+                fail(f"{name} differs from its plain version on the 25 MiB "
+                     f"{kind} block")
+            del want
+            b, by = bound_ms(nbytes, ops)
+            rows[name]["by_kind"][kind] = {
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": b,
+                "longest_gap": int(walks.max()), "rulers": len(walks),
+                "nodes": nodes, "rounds": rounds}
+            if kind == "text":
+                rows[name].update(ms=ms, plain_ms=plain_ms,
+                                  plain_at_bytes=n, bound_ms=b, bound_by=by,
+                                  rows=n, nodes=nodes, rounds=rounds,
+                                  longest_gap=int(walks.max()))
+            line.append(f"{name} {ms:.4f} (bound {b:.4f} by {by}, plain "
+                        f"{plain_ms:.1f})")
+        k16_ms = cuda_ms(lambda: K16.unbwt(U, primary, aux), TIMED_LAUNCHES)
+        sort_ms = cuda_ms(lambda: bwt.bucket_ends(
+            torch.sort(U, stable=True)[0]), TIMED_LAUNCHES)
+        lr_ms = cuda_ms(lambda: bwt.bwt_decode(U, primary), 1)
+        buf = U.cpu().numpy()
+        rc, native_ms = timed(lambda: engine.bwt_decode(
+            buf, primary, len(aux), aux, features))
+        if rc != 0 or not np.array_equal(buf, data):
+            fail(f"the native inverse did not restore the {kind} block")
+        rows["rulers_write"]["by_kind"][kind].update(
+            k16_ms=k16_ms, sort_ms=sort_ms, list_ranking_ms=lr_ms,
+            native_ms=native_ms)
+        if kind == "text":
+            rows["rulers_write"].update(
+                k16_ms=k16_ms, sort_ms=sort_ms, list_ranking_ms=lr_ms,
+                native_ms=native_ms, k16_bound_ms=sum(
+                    rows[k]["bound_ms"] for k in names))
+        print(f"phase 2 time K16 on the {n}-byte {kind} block ({nodes} nodes, "
+              f"{len(walks)} rulers, longest gap {int(walks.max())} rows, "
+              f"{rounds} rounds): {'; '.join(line)} ms; whole "
+              f"{k16_ms:.4f} ms (sort and bucket ends {sort_ms:.4f}); list "
+              f"ranking {lr_ms:.2f} ms, native {native_ms:.1f} ms; {smi()}",
+              flush=True)
+        del U, u_sorted, pairs, succ, gap, rsucc, dist, out, got
+        torch.cuda.empty_cache()
+    return list(rows.values())
+
+
 def transform_step(blocks: list, features: int, device) -> dict:
     """Phase 6: the sharded transform step on a one-GPU mesh, both
     sorters, held against the native sorters; the ST leg's archive through
@@ -2007,6 +2156,7 @@ def cli_path(data: bytes, features: int, device, repo: str) -> dict:
 
     from libbsc_tpu_torch import cli, engine
     from libbsc_tpu_torch import constants as C
+    from libbsc_tpu_torch.ops import unbwt_rulers as K16
     from libbsc_tpu_torch.ops import wide_kernels as WK
 
     card = smi()
@@ -2089,10 +2239,19 @@ def cli_path(data: bytes, features: int, device, repo: str) -> dict:
             fail(f"cli -G: the device BWT ran {sorted_on_card} times for "
                  f"{len(host)} blocks")
         os.remove(back)
+        k16_want = k16_launches(arch)
+        before = engine.DEVICE_ROUTES["bwt_decode"]
+        K16.reset_launches()
         _, t_def_dec = timed(lambda: cli.decompress_file(
             arch, back, args("-G"), quiet=True))
+        k16 = dict(K16.LAUNCHES)
+        inverted = engine.DEVICE_ROUTES["bwt_decode"] - before
         if not restored():
             fail("cli -G did not restore the default-config file")
+        if k16 != k16_want or inverted != k16_want["rulers_write"]:
+            fail(f"cli d -G: K16 launched {k16} and DEVICE_ROUTES counted "
+                 f"{inverted} inverses, where its blocks of 1 MiB or more "
+                 f"want {k16_want}")
         lz = engine.lzp_compress(np.frombuffer(data[:BLOCK], np.uint8),
                                  C.DEFAULT_LZPHASHSIZE, C.DEFAULT_LZPMINLEN,
                                  features)
@@ -2122,7 +2281,8 @@ def cli_path(data: bytes, features: int, device, repo: str) -> dict:
               f"{len(host)} blocks; encode {mb / t_dev_enc * 1e3:.2f} MB/s "
               f"with -G ({t_dev_enc:.1f} ms), {mb / t_host_enc * 1e3:.2f} "
               f"MB/s without ({t_host_enc:.1f} ms); decode -G "
-              f"{mb / t_def_dec * 1e3:.2f} MB/s; bwt stage on a "
+              f"{mb / t_def_dec * 1e3:.2f} MB/s, K16 launches {k16} "
+              f"({inverted} blocks inverted on the card); bwt stage on a "
               f"{len(lz)}-byte block: device {t_dev_bwt:.1f} ms, host "
               f"{t_host_bwt:.1f} ms; K11-K14 launches: the farm "
               f"{farm_sort}, the block {block_sort}; {card}", flush=True)
@@ -2145,8 +2305,37 @@ def cli_path(data: bytes, features: int, device, repo: str) -> dict:
                   flush=True)
         if not restored():
             fail("the cli subprocesses did not restore the file")
-    return {name: {"encode": enc[name], "decode": dec[name]}
-            for name in V3}
+    out = {name: {"encode": enc[name], "decode": dec[name]} for name in V3}
+    out.update({name: {"encode": 0, "decode": k16[name]} for name in k16})
+    return out
+
+
+def k16_launches(path: str) -> dict:
+    """The K16 launches that decoding the default-format archive at path
+    on the card must count: one table, gaps and write launch a block
+    whose sorter input is 1 MiB or more, and ceil(log2 nodes) rounds of
+    the ranking, nodes = ceil((n + 1) / 64) tiles + the start rows (the
+    primary, and the aux indexes where the block has the format's count
+    of them) + the sentinel."""
+    from libbsc_tpu_torch import api
+    from libbsc_tpu_torch import constants as C
+    from libbsc_tpu_torch.ops import bwt
+    from libbsc_tpu_torch.ops import unbwt_rulers as K16
+
+    want = dict.fromkeys(K16.LAUNCHES, 0)
+    for _, _, block in _entries(path).values():
+        st = api._decode_to_sorter(block, None)
+        if isinstance(st, bytes):  # a stored block
+            continue
+        n = len(st["lz"])
+        if st["sorter"] != C.BLOCKSORTER_BWT or n < 1 << 20:
+            continue
+        aux = st["num_indexes"] == (n - 1) // bwt.aux_rate(n)
+        nodes = K16.tiles_of(n) + 1 + aux * st["num_indexes"] + 1
+        for name in ("rulers_table", "rulers_gaps", "rulers_write"):
+            want[name] += 1
+        want["rulers_rank"] += (nodes - 1).bit_length()
+    return want
 
 
 def sharded_st(blocks: list, features: int, device) -> None:
@@ -2408,63 +2597,41 @@ RC_LANES, RC_BITS = 256, 1000  # phase 10 (d)'s lockstep range coder
 def ops_engine(data: bytes, features: int, device, phase3: bytes) -> None:
     """Phase 10 (a): TBSC_ENGINE=ops (engine._force) on the 25 MiB block
     with the default config and no FEATURE_CUDA: DEVICE_ROUTES must count
-    one bwt_encode and one bwt_decode, the archive must equal the native
-    engine's and come back; the list-ranking inverse timed on the
-    block's BWT against the native tbsc_bwt_decode (device, native,
-    native, device), with peak device memory; then -m9 -e4 under ops:
-    K1-K3 must launch and the archive must equal phase 3's."""
-    import torch
-
+    one bwt_encode and one bwt_decode, the decode K16's four kernels once
+    each (and its ranking's rounds), the archive must equal the native
+    engine's and come back; then -m9 -e4 under ops: K1-K3 must launch and
+    the archive must equal phase 3's.  (K16, the list ranking and the
+    native inverse are timed in phase 2, time_rulers.)"""
     import libbsc_tpu_torch as P
     from libbsc_tpu_torch import constants as C
     from libbsc_tpu_torch import engine
-    from libbsc_tpu_torch.ops import bwt
+    from libbsc_tpu_torch.ops import unbwt_rulers as K16
     from libbsc_tpu_torch.ops import wide_kernels as WK
 
     feats = features & ~C.FEATURE_CUDA
     P.init(feats, device=device)
     want = P.compress(data)
-    lz = engine.lzp_compress(np.frombuffer(data, np.uint8),
-                             C.DEFAULT_LZPHASHSIZE, C.DEFAULT_LZPMINLEN,
-                             feats)
-    lz = np.frombuffer(data, np.uint8).copy() if lz is None else lz
-    U = lz.copy()
-    primary, ni, aux = engine.bwt_encode(U, feats)  # native
     saved = engine._force
     try:
         engine._force = "ops"
         before = dict(engine.DEVICE_ROUTES)
         archive, t_enc = timed(lambda: P.compress(data))
+        K16.reset_launches()
         back, t_dec = timed(lambda: P.decompress(archive))
+        k16 = dict(K16.LAUNCHES)
         counted = {k: engine.DEVICE_ROUTES[k] - before[k]
                    for k in ("bwt_encode", "bwt_decode")}
         if counted != {"bwt_encode": 1, "bwt_decode": 1}:
             fail(f"ops: DEVICE_ROUTES counted {counted}")
+        if [k16[k] for k in ("rulers_table", "rulers_gaps",
+                             "rulers_write")] != [1, 1, 1] or \
+                not k16["rulers_rank"]:
+            fail(f"ops: the inverse BWT did not run K16 once: {k16}")
         if archive != want:
             fail("ops: the default-config archive differs from the native "
                  "engine's")
         if back != data:
             fail("ops: the default-config block did not come back")
-        ms = {"device": [], "native": []}
-        peak = 0
-        u_dev = torch.from_numpy(U).to(device)
-        for turn in ("device", "native", "native", "device"):
-            if turn == "device":
-                torch.cuda.empty_cache()
-                torch.cuda.reset_peak_memory_stats()
-                base = torch.cuda.memory_allocated()
-                out, t = timed(lambda: bwt.bwt_decode(u_dev, primary))
-                peak = max(peak, torch.cuda.max_memory_allocated() - base)
-                ok = np.array_equal(out.cpu().numpy(), lz)
-            else:
-                buf = U.copy()
-                rc, t = timed(lambda: engine.bwt_decode(buf, primary, ni,
-                                                        aux, feats))
-                ok = rc == 0 and np.array_equal(buf, lz)
-            if not ok:
-                fail(f"the {turn} inverse BWT did not restore the block")
-            ms[turn].append(t)
-        del u_dev
         WK.reset_launches()
         kw = dict(block_sorter=C.BLOCKSORTER_BWT_WIDEAUX,
                   coder=C.CODER_QLFC_WIDE)
@@ -2484,12 +2651,9 @@ def ops_engine(data: bytes, features: int, device, phase3: bytes) -> None:
           f"bytes, equal to the native engine's; encode "
           f"{mb / t_enc * 1e3:.2f} MB/s ({t_enc:.1f} ms), decode "
           f"{mb / t_dec * 1e3:.2f} MB/s ({t_dec:.1f} ms); routes {counted}; "
-          f"inverse BWT of the {len(lz)}-byte block: list ranking "
-          f"{', '.join(f'{t:.1f}' for t in ms['device'])} ms (peak "
-          f"{peak} B over the block), native tbsc_bwt_decode "
-          f"{', '.join(f'{t:.1f}' for t in ms['native'])} ms; ops -m9 -e4: "
-          f"phase 3's archive, encode {t9_enc:.1f} ms, decode "
-          f"{t9_dec:.1f} ms, launches {launches}; {smi()}", flush=True)
+          f"K16 launches {k16}; ops -m9 -e4: phase 3's archive, encode "
+          f"{t9_enc:.1f} ms, decode {t9_dec:.1f} ms, launches {launches}; "
+          f"{smi()}", flush=True)
 
 
 def numpy_engine(data: bytes, repo: str) -> None:
@@ -2825,6 +2989,7 @@ def main() -> int:
     st = stages(data, features, device)
     rows = time_kernels(st, device, clock_mhz)
     scan_rows = time_scan(st, device, clock_mhz)
+    rulers_rows = time_rulers(st["lz"], features, device)
     sort_rows = time_sort(st, device)
     stats_rows = time_stats(data, device)
     screen_rows = time_lzp_screen(data, device)
@@ -2881,8 +3046,11 @@ def main() -> int:
         r.update(checked[r["name"]], launches=launches[r["name"]])
     for r in screen_rows:
         r.update(launches=launches[r["name"]])
+    for r in rulers_rows:  # the main path that runs K16: phase 8's -G d
+        r.update(launches=cli_launches[r["name"]]["decode"],
+                 cli_launches=cli_launches[r["name"]])
     print(json.dumps({"kernels": rows + stats_rows + scan_rows + sort_rows
-                      + screen_rows}))
+                      + screen_rows + rulers_rows}))
     print(smi())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -31,10 +31,11 @@ Host buffers come from the per-thread pool (``utils/bufpool``) at the JAX
 package's slots: ``"compress_lz"`` (LZP's output or the raw block; page-
 locked when the device route is CUDA, as it feeds the fused route's H2D),
 ``"compress_coder"``, and for :func:`decompress` alone ``"decompress_lz"``
-(the entropy-decoded block; page-locked for the fused route's D2H on
-CUDA) and ``"decompress_out"``.  Every call returns ``bytes``, never a
-view of a slot; :func:`decompress_batch` holds many blocks at once and
-keeps fresh buffers.
+(the entropy-decoded block; page-locked on CUDA, for the fused route's
+D2H and the device inverse BWT's two copies) and ``"decompress_out"``.
+Every call returns ``bytes``, never a view of a slot;
+:func:`decompress_batch` holds many blocks at once and keeps fresh
+buffers.
 
 ``init(features, device=None)`` chooses the device: ``None`` means
 ``cuda``, which must be present; ``device="cpu"`` runs every kernel's
@@ -397,7 +398,9 @@ def _decode_to_sorter(block: bytes, expected_size: int | None,
                 lz = np.frombuffer(wide.wide_decode(payload),
                                    dtype=np.uint8).copy()
     else:
-        dst = (bufpool.get("decompress_lz", h.data_size + 4096)
+        # page-locked on CUDA: the device inverse BWT copies it both ways
+        dst = (bufpool.get("decompress_lz", h.data_size + 4096,
+                           device is not None and device.type == "cuda")
                if scratch else None)
         with _stage("coder_decompress", len(payload)) as sp:
             lz = engine.coder_decompress(
@@ -425,7 +428,8 @@ def _run_sorter(st) -> None:
     if st["sorter"] == C.BLOCKSORTER_BWT:
         with _stage("bwt_decode", len(lz)) as sp:
             route = engine.bwt_route(len(lz), st["device"], True)
-            # the native inverse interleaves its chains on one thread
+            # the native inverse interleaves its chains on one thread;
+            # the device's (K16) counts none
             sp.tag = (f"{route}, {st['num_indexes']} aux, "
                       f"{int(route == 'host')} threads")
             rc = engine.bwt_decode(lz, h.index, st["num_indexes"],

@@ -16,12 +16,13 @@ JAX package's conditions.
 so tests monkeypatch it the same way) selects the engine:
 
 - unset or ``native``: the native runtime; the device routes only with
-  FEATURE_CUDA (:func:`device_route`);
+  FEATURE_CUDA (:func:`device_route`), among them the default format's
+  inverse BWT of a block of 1 MiB or more on a CUDA device (K16);
 - ``ops``: every device route on the API's device, whatever FEATURE_CUDA
   says: the BWT sorts there without ``TBSC_BWT_DEVICE``, the ST sorts
   there, and the default-format inverse BWT of a block of 1 MiB or more
-  runs by list ranking (``ops/bwt.bwt_decode``); on ``device="cpu"``
-  these are the plain versions;
+  runs there (K16, ``ops/unbwt_rulers.py``); on ``device="cpu"`` these
+  are the plain versions;
 - ``tpu``: ``ops`` when the API's device is CUDA, else every stage on
   the host (the JAX package's ``tpu`` needs a device that is no CPU);
 - ``numpy``: the native runtime is never loaded.  LZP, the QLFC coders
@@ -201,17 +202,21 @@ def _checked(decode, capacity: int | None = None):
 def bwt_route(n: int, device, inverse: bool = False) -> str:
     """Where the default format's BWT (``inverse``: its inverse) of an
     ``n``-byte block runs: ``numpy`` (``TBSC_ENGINE=numpy``: the torch
-    ops on the API's device), ``device`` (``ops/bwt`` on ``device``) or
-    ``host`` (the native runtime).  See :func:`bwt_encode` and
+    ops on the API's device), ``device`` (``ops/`` on ``device``) or
+    ``host`` (the native runtime).  A block under 1 MiB, or with no
+    ``device``, stays on the host; ``TBSC_ENGINE=ops|tpu`` sends the rest
+    to ``device``; otherwise the inverse goes to a CUDA ``device`` and the
+    forward only under ``TBSC_BWT_DEVICE=1``.  See :func:`bwt_encode` and
     :func:`bwt_decode`."""
     if _force == "numpy":
         return "numpy"
     if device is None or n < _DEVICE_MIN_BLOCK:
         return "host"
-    if _forced(device) or (not inverse and os.environ.get(
-            "TBSC_BWT_DEVICE") == "1"):
+    if _forced(device):
         return "device"
-    return "host"
+    if inverse:
+        return "device" if device.type == "cuda" else "host"
+    return "device" if os.environ.get("TBSC_BWT_DEVICE") == "1" else "host"
 
 
 def bwt_encode(data: np.ndarray, features: int, device=None, data_d=None):
@@ -271,12 +276,19 @@ def bwt_decode(data: np.ndarray, index: int, num_indexes: int, indexes,
     """Inverse BWT of the default format in place.  Returns 0 or a
     negative error code.
 
-    Under ``TBSC_ENGINE=ops|tpu`` (``device`` from :func:`device_route`)
-    a block of 1 MiB or more inverts on the device by list ranking
-    (``ops/bwt.bwt_decode``, counted in ``DEVICE_ROUTES``); a primary
-    outside [1, n] returns DATA_CORRUPT before any launch (what the JAX
-    route's output ends in at the Adler-32 check).  Under ``numpy`` every
-    block takes that list ranking on the API's device.  Other blocks take
+    A block of 1 MiB or more on a CUDA ``device`` (:func:`device_route`:
+    FEATURE_CUDA, or ``TBSC_ENGINE=ops|tpu``), or on ``device="cpu"``
+    under ``ops``, inverts there by K16 (``ops/unbwt_rulers.unbwt``: its
+    kernels on CUDA, their plain versions on the CPU), the primary and,
+    where the block has the format's count of them, the aux indexes as
+    its start rows; spans ``bwt.upload`` and ``bwt.download`` time the
+    block's two copies (the kernels are waited for between them).  A
+    start that can be no BWT's (a primary outside [1, n], an aux index
+    outside [0, n), two starts on one row) returns DATA_CORRUPT before
+    any launch, and so does a block K16 finds to be no BWT of them; the
+    route counts in ``DEVICE_ROUTES``, and a device failure raises.
+    Under ``numpy`` every block takes the list ranking
+    (``fallback/bwt.bwt_decode``) on the API's device.  Other blocks take
     the native runtime."""
     n = len(data)
     where = bwt_route(n, device, inverse=True)
@@ -286,21 +298,38 @@ def bwt_decode(data: np.ndarray, index: int, num_indexes: int, indexes,
         return bwt.bwt_decode(data, index, num_indexes, indexes,
                               _numpy_device())
     if where == "device":
-        from .ops import bwt as opsbwt
-
-        if not 0 < index <= n:
-            return C.DATA_CORRUPT
-        out = opsbwt.bwt_decode(torch.from_numpy(_as_c(data)).to(device),
-                                index)
-        data[:] = out.cpu().numpy()
-        DEVICE_ROUTES["bwt_decode"] += 1
-        return 0
+        return _unbwt_device(data, index, num_indexes, indexes, device)
     lib = native.load()
     idx = (np.ascontiguousarray(indexes, dtype=np.int32)
            if indexes is not None else np.zeros(1, dtype=np.int32))
     return lib.tbsc_bwt_decode(native.u8p(data), len(data), index,
                                num_indexes, native.i32p(idx),
                                num_threads(features))
+
+
+def _unbwt_device(data: np.ndarray, index: int, num_indexes: int, indexes,
+                  device) -> int:
+    """:func:`bwt_decode`'s device route: K16 on ``data`` in place."""
+    from .ops import bwt as opsbwt
+    from .ops import unbwt_rulers
+
+    n = len(data)
+    aux = None
+    if indexes is not None and num_indexes == (n - 1) // opsbwt.aux_rate(n):
+        aux = np.asarray(indexes[:num_indexes])
+    try:
+        unbwt_rulers.start_rows(n, index, aux)
+    except ValueError:
+        return C.DATA_CORRUPT
+    with span("bwt.upload", n):
+        data_d = torch.from_numpy(_as_c(data)).to(device)
+    out, status = unbwt_rulers.unbwt(data_d, index, aux)
+    DEVICE_ROUTES["bwt_decode"] += 1
+    if int(status):  # waits for the kernels
+        return C.DATA_CORRUPT
+    with span("bwt.download", n):
+        torch.from_numpy(data).copy_(out)
+    return 0
 
 
 def st_encode(data: np.ndarray, k: int, features: int, device=None) -> int:

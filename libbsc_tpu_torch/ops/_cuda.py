@@ -122,6 +122,15 @@ _SIGNATURES = {
                          [_VP, _VP, _L, _L, _L] + [_VP] * 5),
     "bwt_extract": ("bwt_sort", "bwt_extract_place_launch",
                     [_VP, _L, _VP, _VP]),
+    "rulers_table": ("unbwt_rulers", "rulers_table_launch",
+                     [_VP, _L, ctypes.c_uint32] + [_VP] * 2 + [_I]
+                     + [_VP] * 2),
+    "rulers_gaps": ("unbwt_rulers", "rulers_gaps_launch",
+                    [_VP, _L, _VP] + [_I] * 2 + [_VP] * 3),
+    "rulers_rank": ("unbwt_rulers", "rulers_rank_launch",
+                    [_VP] * 4 + [_I, ctypes.POINTER(ctypes.c_int), _VP]),
+    "rulers_write": ("unbwt_rulers", "rulers_write_launch",
+                     [_VP, _VP, _L, _VP, _VP] + [_I] * 2 + [_VP] * 6),
     "lzp_screen": ("lzp_screen", "lzp_screen_launch",
                    [_VP, _L, _L, _I, _I, ctypes.c_uint64, _I]
                    + [_VP] * 4),

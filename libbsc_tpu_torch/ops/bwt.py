@@ -28,8 +28,9 @@ runtime's tbsc_bwt_encode_rate):
   primary index = rank(suffix 0) + 1;
   aux indexes at rate r: indexes[t] = rank(suffix (t+1) r).
 
-Inverse of the default format (:func:`bwt_decode`, the ``TBSC_ENGINE=ops``
-route): the LF permutation is list-ranked by pointer doubling, a fixed
+Inverse of the default format (:func:`bwt_decode`, the ``TBSC_ENGINE=numpy``
+route; the device route runs K16, ``ops/unbwt_rulers.py``): the LF
+permutation is list-ranked by pointer doubling, a fixed
 ceil(log2 n) rounds of two gathers each, with no host sync.  Inverse of the
 wide-aux profile: the tail gives (n-1)//r + 1 independent forward chains
 (the primary and each aux index), chased by K8 (``csrc/unbwt_chase.cu``):

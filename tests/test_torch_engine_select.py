@@ -13,6 +13,7 @@ from libbsc_tpu import engine as jengine
 from libbsc_tpu_torch import constants as C
 from libbsc_tpu_torch import engine as pengine
 from libbsc_tpu_torch.ops import bwt as pbwt
+from libbsc_tpu_torch.ops import unbwt_rulers
 from tests.conftest import make_corpus
 
 BIG = 1_052_897
@@ -94,7 +95,7 @@ def test_a_device_failure_under_ops_raises(data, monkeypatch):
         raise RuntimeError("device failure")
 
     monkeypatch.setattr(pengine, "_force", "ops")
-    monkeypatch.setattr(pbwt, "bwt_decode", broken)
+    monkeypatch.setattr(unbwt_rulers, "unbwt", broken)  # the inverse, K16
     with pytest.raises(RuntimeError, match="device failure"):
         P.decompress(archive)
     monkeypatch.setattr(pbwt, "bwt_encode", broken)

@@ -839,3 +839,170 @@ def test_sort_wrappers_hold_their_scratch_through_the_launch(cuda,
         assert U.cpu().numpy().tobytes() == ref.tobytes()
         assert int(p) == primary
         np.testing.assert_array_equal(aux.cpu().numpy(), idx[:ni])
+
+
+def _k16_block(kind: str, n: int) -> np.ndarray:
+    g = np.random.default_rng(1600 + n)
+    if kind == "text":
+        return np.frombuffer(_text(n, 1601), np.uint8).copy()
+    if kind == "zeros":
+        return np.zeros(n, np.uint8)
+    if kind == "periodic":
+        return np.resize(g.integers(0, 256, 1000, dtype=np.uint8), n)
+    return g.integers(0, 256, n, dtype=np.uint8)
+
+
+def _k16_steps(U, primary: int, aux, out=None):
+    """K16's four launches on U (on the card), and each step's plain
+    version on the kernels' own inputs: (kernel results, plain results),
+    each (pairs, succ, gap, dist, out, status)."""
+    from libbsc_tpu_torch.ops import unbwt_rulers as K16
+
+    n = int(U.shape[0])
+    rows, offs = K16.start_rows(n, primary, aux)
+    srows = torch.from_numpy(rows).to(U.device)
+    offsets = torch.from_numpy(offs).to(U.device)
+    chars, u_sorted = torch.sort(U, stable=True)
+    ends = BW.bucket_ends(chars)
+    K16.reset_launches()
+    pairs = K16.table(u_sorted, primary, ends, srows)
+    succ, gap = K16.gaps(pairs, n, srows)
+    rsucc, dist = K16.rank(succ, gap)
+    got, status = K16.write(pairs, ends, n, srows, offsets, rsucc, dist,
+                            gap, out=out)
+    torch.cuda.synchronize()
+    # the ranking's C call reports its rounds, ceil(log2 nodes)
+    rounds = (int(succ.shape[0]) - 1).bit_length()
+    assert K16.LAUNCHES == {"rulers_table": 1, "rulers_gaps": 1,
+                            "rulers_rank": rounds, "rulers_write": 1}
+    plain = (K16.table_plain(u_sorted, primary, ends, srows),
+             *K16.gaps_plain(pairs, n, srows))
+    plain += K16.rank_plain(succ, gap)
+    plain += K16.write_plain(pairs, ends, n, srows, offsets, rsucc, dist,
+                             gap)
+    kernel = (pairs, succ, gap, rsucc, dist, got, status)
+    return kernel, plain
+
+
+@pytest.mark.parametrize("kind", ["text", "zeros", "periodic", "random"])
+def test_k16_equals_plain_and_native_at_25_mib(cuda, kind):
+    """K16 on a 25 MiB block of each kind (the device BWT's U, primary
+    and aux indexes): each of its four kernels equals its plain version
+    on the same inputs, the block comes back with status 0, and the
+    native inverse gives the same bytes."""
+    from libbsc_tpu_torch import engine
+
+    data = _k16_block(kind, 25 << 20)
+    U, primary, aux = BW.bwt_encode(torch.from_numpy(data).to(cuda))
+    primary, aux = int(primary), aux.cpu().numpy()
+    kernel, plain = _k16_steps(U, primary, aux)
+    for got, want in zip(kernel, plain):
+        assert torch.equal(got.cpu(), want.cpu().to(got.dtype))
+    assert int(kernel[-1]) == 0
+    assert kernel[-2].cpu().numpy().tobytes() == data.tobytes()
+    back = U.cpu().numpy()
+    assert engine.bwt_decode(back, primary, len(aux), aux,
+                             C.FEATURE_MULTITHREADING) == 0
+    assert back.tobytes() == data.tobytes()
+
+
+@pytest.mark.parametrize("case", ["random", "swapped"])
+def test_k16_on_a_non_bwt_ends_inside_the_block(cuda, case):
+    """Bytes that are no BWT, each start row valid (random bytes, primary
+    1234; a real 4 MiB BWT with two bytes swapped, with its aux indexes):
+    K16 ends, writes nothing outside [0, n) (guard bytes on both sides of
+    its output), reports status 1 and equals its plain version; the
+    engine's device route returns DATA_CORRUPT."""
+    from libbsc_tpu_torch import engine
+
+    n = 4 << 20
+    if case == "random":
+        U, primary, aux = _k16_block("random", n), 1234, None
+    else:
+        U = _k16_block("text", n)
+        primary, ni, aux = engine.bwt_encode(U, C.FEATURE_MULTITHREADING)
+        aux = aux[:ni]
+        i = int(np.argmax(U != U[0]))
+        U[[0, i]] = U[[i, 0]]
+    guarded = torch.full((n + 1024,), 0xA5, dtype=torch.uint8, device=cuda)
+    guarded[512: 512 + n] = 0
+    kernel, plain = _k16_steps(torch.from_numpy(U).to(cuda), primary, aux,
+                               out=guarded[512: 512 + n])
+    for got, want in zip(kernel, plain):
+        assert torch.equal(got.cpu(), want.cpu().to(got.dtype))
+    assert int(kernel[-1]) == 1
+    assert bool((guarded[:512] == 0xA5).all())
+    assert bool((guarded[512 + n:] == 0xA5).all())
+    buf = U.copy()
+    assert engine.bwt_decode(buf, primary, 0 if aux is None else len(aux),
+                             aux, 0, cuda) == C.DATA_CORRUPT
+
+
+def test_cli_gpu_default_format_decodes_on_the_card(cuda, tmp_path):
+    """A default-format file (-b2: three 2 MiB blocks and a tail) encoded
+    on the host comes back through decompress_file -G; each block of
+    1 MiB or more takes K16 (DEVICE_ROUTES counts three), from the
+    page-locked "decompress_lz" slot."""
+    from libbsc_tpu_torch import cli, engine
+    from libbsc_tpu_torch.ops import unbwt_rulers as K16
+
+    data = _text(3 * (2 << 20) + 4321, 1602)
+    inp, arch, back = tmp_path / "in", tmp_path / "a.bsc", tmp_path / "r"
+    inp.write_bytes(data)
+    cli.compress_file(str(inp), str(arch),
+                      cli.parse_args(["x", "e", "a", "b", "-b2"]), quiet=True)
+    before = engine.DEVICE_ROUTES["bwt_decode"]
+    K16.reset_launches()
+    cli.decompress_file(str(arch), str(back),
+                        cli.parse_args(["x", "d", "a", "b", "-G"]),
+                        quiet=True)
+    assert back.read_bytes() == data
+    assert engine.DEVICE_ROUTES["bwt_decode"] == before + 3
+    assert [K16.LAUNCHES[k] for k in ("rulers_table", "rulers_gaps",
+                                      "rulers_write")] == [3, 3, 3]
+    # a block of 1 to 2 MiB (LZP may shorten it) has 2^14 to 2^15 + 9
+    # nodes (a ruler a 64 rows, 8 start rows, the sentinel): 15 or 16
+    # rounds of the ranking each
+    assert 3 * 15 <= K16.LAUNCHES["rulers_rank"] <= 3 * 16
+    P.init(C.DEFAULT_FEATURES | C.FEATURE_CUDA, device=cuda)
+    blob = P.compress(data[: 2 << 20])
+    assert _in_thread_slots(lambda: P.decompress(blob)) == data[: 2 << 20]
+
+
+def _in_thread_slots(fn):
+    """fn's result in a fresh thread, after checking that its page-locked
+    slots are "decompress_lz" alone."""
+    box = {}
+
+    def run():
+        box["out"] = fn()
+        box["pinned"] = sorted(_pinned_slots())
+
+    t = threading.Thread(target=run)
+    t.start()
+    t.join(timeout=120)
+    assert not t.is_alive() and box["pinned"] == ["decompress_lz"]
+    return box["out"]
+
+
+def test_k16_route_spans_and_tag(cuda):
+    """A 2 MiB default-format block decoded on the card, under the
+    profiler: its bwt_decode span is tagged "device, <k> aux, 0 threads"
+    and holds one bwt.upload and one bwt.download."""
+    from libbsc_tpu_torch.utils import trace
+
+    data = _text(2 << 20, 1603)
+    P.init(C.DEFAULT_FEATURES | C.FEATURE_CUDA, device=cuda)
+    blob = P.compress(data)
+    prof = torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CPU])
+    prof.start()
+    try:
+        assert P.decompress(blob) == data
+    finally:
+        prof.stop()
+    rec = trace.spans()
+    [unbwt] = [s for s in rec if s.name == "bwt_decode"]
+    assert unbwt.tag == f"device, {blob[-1]} aux, 0 threads"
+    assert sorted(s.name for s in rec if s.parent == unbwt.id) == [
+        "bwt.download", "bwt.upload"]

@@ -20,7 +20,7 @@ def test_import_loads_no_jax_and_no_jax_package():
         "from libbsc_tpu_torch.filters import detectors, preprocessing, "
         "tables\n"
         "from libbsc_tpu_torch.ops import _cuda, bwt, st, stats_kernels, "
-        "wide, wide_kernels, wide_rc, wide_schedule\n"
+        "unbwt_rulers, wide, wide_kernels, wide_rc, wide_schedule\n"
         "from libbsc_tpu_torch import fallback, format, parallel\n"
         "from libbsc_tpu_torch.fallback import bwt, lzp, qlfc, st\n"
         "from libbsc_tpu_torch.format import subblocks\n"
@@ -67,3 +67,18 @@ def test_other_configurations_are_not_supported():
     blob = P.compress(b"abc" * 1000, block_sorter=C.BLOCKSORTER_BWT,
                       coder=C.CODER_QLFC_STATIC)
     assert P.decompress(blob) == b"abc" * 1000
+
+
+def test_every_launcher_declares_its_c_arguments():
+    """Each ``ops/_cuda`` launch name's argtypes count the parameters of
+    its ``extern "C"`` function in ``csrc/<stem>.cu`` (ctypes would pass
+    a call with too few arguments on to the card's library unchecked)."""
+    import re
+
+    from libbsc_tpu_torch.ops import _cuda
+
+    for name, (stem, sym, argtypes) in _cuda._SIGNATURES.items():
+        src = (_cuda.CSRC / f"{stem}.cu").read_text()
+        m = re.search(r'extern "C" int ' + sym + r"\(([^)]*)\)", src)
+        assert m, (name, sym)
+        assert len(m.group(1).split(",")) == len(argtypes), name
