@@ -116,10 +116,11 @@ Phases, one line or more each:
      blocks on the card (the farm hands each block to whichever worker
      takes it first, so the host worker may take a 25 MiB block: the
      count is printed; K11, K13 and K14 at least once a block sorted on
-     the card); its decode with -G must restore the file, each block of
-     1 MiB or more inverted by K16 (DEVICE_ROUTES["bwt_decode"] and K16's
-     launch counters, set to 0 just before, must count one table, gaps
-     and write launch a block and its ranking's rounds: k16_launches);
+     the card), and the farm must leave os.environ as it was; its decode
+     with -G must restore the file, each block of 1 MiB or more inverted
+     by K16 (DEVICE_ROUTES["bwt_decode"] and K16's launch counters, set to
+     0 just before, must count one table, gaps and write launch a block
+     and its ranking's rounds: k16_launches);
      then the device BWT route (counted, through K11-K14) and the host
      BWT on one 25 MiB block, equal and each timed; (c)
      one subprocess each of `python3 -m libbsc_tpu_torch.cli e IN OUT -m9
@@ -138,12 +139,12 @@ Phases, one line or more each:
      block offsets and its K1/K2 launches (both must launch) and must
      import no JAX; the two-process archive must decode with cli -G (K3
      launched) to the file, and its entries must equal the one-process
-     archive's; (c) the LZP'd 25 MiB block through engine.bwt_encode with
-     TBSC_BWT_DEVICE=1, by prefix quadrupling and with TBSC_BWT=dc3 by
-     DC3, in turns (prefix, dc3, dc3, prefix), each equal to the native
-     BWT, timed, with its peak device memory; DEVICE_ROUTES must count
-     both, and each call must launch K11-K14; both variables are
-     restored.
+     archive's; (c) the LZP'd 25 MiB block through engine.bwt_encode on
+     the card (a CUDA device takes the route by itself), by prefix
+     quadrupling and with TBSC_BWT=dc3 by DC3, in turns (prefix, dc3,
+     dc3, prefix), each equal to the native BWT, timed, with its peak
+     device memory; DEVICE_ROUTES must count both, and each call must
+     launch K11-K14; TBSC_BWT is restored.
  10. the last modules (each variable and engine._force it sets is
      restored): (a) TBSC_ENGINE=ops (engine._force) on the 25 MiB block,
      default config, no FEATURE_CUDA: DEVICE_ROUTES must count one
@@ -2221,6 +2222,7 @@ def cli_path(data: bytes, features: int, device, repo: str) -> dict:
         host = _entries(arch)
         before = engine.DEVICE_ROUTES["bwt_encode"]
         sort_before = sort_launches()
+        env = dict(os.environ)
         _, t_dev_enc = timed(lambda: cli.compress_file(inp, arch, args("-G"),
                                                        quiet=True))
         sorted_on_card = engine.DEVICE_ROUTES["bwt_encode"] - before
@@ -2230,8 +2232,8 @@ def cli_path(data: bytes, features: int, device, repo: str) -> dict:
                 sorted_on_card:
             fail(f"cli -G: K11, K13 and K14 did not launch for each of the "
                  f"{sorted_on_card} blocks sorted on the card: {farm_sort}")
-        if os.environ.get("TBSC_BWT_DEVICE") is not None:
-            fail("cli -G did not restore TBSC_BWT_DEVICE")
+        if dict(os.environ) != env:
+            fail("cli -G wrote into the process environment")
         if _entries(arch) != host:
             fail("cli -G: the default config's entries differ from the "
                  "host archive's")
@@ -2256,14 +2258,10 @@ def cli_path(data: bytes, features: int, device, repo: str) -> dict:
                                  C.DEFAULT_LZPHASHSIZE, C.DEFAULT_LZPMINLEN,
                                  features)
         lz = np.frombuffer(data[:BLOCK], np.uint8) if lz is None else lz
-        os.environ["TBSC_BWT_DEVICE"] = "1"
         before = engine.DEVICE_ROUTES["bwt_encode"]
         sort_before = sort_launches()
-        try:
-            dev_bwt, t_dev_bwt = timed(lambda: engine.bwt_encode(
-                lz.copy(), features, device))
-        finally:
-            del os.environ["TBSC_BWT_DEVICE"]
+        dev_bwt, t_dev_bwt = timed(lambda: engine.bwt_encode(
+            lz.copy(), features, device))
         block_sort = {k: v - sort_before[k]
                       for k, v in sort_launches().items()}
         if engine.DEVICE_ROUTES["bwt_encode"] != before + 1 or \
@@ -2518,11 +2516,11 @@ def farm(data: bytes, features: int, device, repo: str) -> dict:
 
 
 def dc3(data: bytes, features: int, device) -> None:
-    """Phase 9 (c): the LZP'd 25 MiB block through engine.bwt_encode with
-    TBSC_BWT_DEVICE=1, by prefix quadrupling (TBSC_BWT unset) and by DC3
+    """Phase 9 (c): the LZP'd 25 MiB block through engine.bwt_encode on
+    the card, by prefix quadrupling (TBSC_BWT unset) and by DC3
     (TBSC_BWT=dc3), in the turns prefix, dc3, dc3, prefix; U, primary and
     aux must equal the native BWT's, and DEVICE_ROUTES must count both
-    routes.  Both variables are restored."""
+    routes.  TBSC_BWT is restored."""
     import torch
 
     from libbsc_tpu_torch import constants as C
@@ -2534,12 +2532,11 @@ def dc3(data: bytes, features: int, device) -> None:
     lz = np.frombuffer(data, np.uint8) if lz is None else lz
     ref = lz.copy()
     primary, ni, aux = engine.bwt_encode(ref, features)
-    saved = {v: os.environ.get(v) for v in ("TBSC_BWT_DEVICE", "TBSC_BWT")}
+    saved = os.environ.get("TBSC_BWT")
     ms = {"bwt_encode": [], "bwt_encode_dc3": []}
     peak, sorted_by = {}, {}
     before = dict(engine.DEVICE_ROUTES)
     try:
-        os.environ["TBSC_BWT_DEVICE"] = "1"
         for route in ("bwt_encode", "bwt_encode_dc3", "bwt_encode_dc3",
                       "bwt_encode"):
             if route == "bwt_encode_dc3":
@@ -2562,11 +2559,10 @@ def dc3(data: bytes, features: int, device) -> None:
                     got[2][:ni], aux[:ni]) or not np.array_equal(buf, ref):
                 fail(f"{route}: the device BWT differs from the native BWT")
     finally:
-        for v, prior in saved.items():
-            if prior is None:
-                os.environ.pop(v, None)
-            else:
-                os.environ[v] = prior
+        if saved is None:
+            os.environ.pop("TBSC_BWT", None)
+        else:
+            os.environ["TBSC_BWT"] = saved
     counted = {r: engine.DEVICE_ROUTES[r] - before[r] for r in ms}
     if counted != {"bwt_encode": 2, "bwt_encode_dc3": 2}:
         fail(f"DEVICE_ROUTES counted {counted}, not two calls of each")

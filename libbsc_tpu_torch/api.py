@@ -12,9 +12,8 @@ same input.  With ``FEATURE_CUDA`` (``-G``):
   on the device for 1024-lane blocks and the native codec for others;
 - ST3-ST8 blocks of 1 MiB or more sort on the device
   (``engine.st_encode``); smaller ones sort on the host;
-- BWT blocks of 1 MiB or more sort on the device when
-  ``TBSC_BWT_DEVICE=1`` opts in (``engine.bwt_encode``; the CLI's -G
-  farm sets it for the default config), on the host otherwise.
+- BWT blocks of 1 MiB or more sort and invert on a CUDA device
+  (``engine.bwt_route``), on the host otherwise.
 The QLFC static, adaptive and fast coders, the host BWT and the inverse
 ST run on the port's native runtime.
 
@@ -427,7 +426,7 @@ def _run_sorter(st) -> None:
     h, lz = st["h"], st["lz"]
     if st["sorter"] == C.BLOCKSORTER_BWT:
         with _stage("bwt_decode", len(lz)) as sp:
-            route = engine.bwt_route(len(lz), st["device"], True)
+            route = engine.bwt_route(len(lz), st["device"])
             # the native inverse interleaves its chains on one thread;
             # the device's (K16) counts none
             sp.tag = (f"{route}, {st['num_indexes']} aux, "

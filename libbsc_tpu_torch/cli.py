@@ -194,11 +194,9 @@ def _device_farm(p: Params, blocks, emit) -> None:
     (features without FEATURE_CUDA) pull blocks from one bounded queue, so
     the host coder runs while the device sorts.  -G runs the default
     config unchanged, the reference's CUDA semantics (bwt/bwt.cpp:
-    178-181): TBSC_BWT_DEVICE=1 sends a BWT block of a device worker to
-    the device sorter for the farm's run and is restored afterwards."""
-    bwt_prev = os.environ.get("TBSC_BWT_DEVICE")
-    if p.block_sorter == C.BLOCKSORTER_BWT:
-        os.environ["TBSC_BWT_DEVICE"] = "1"
+    178-181): each worker's features decide its routes, so a device
+    worker's BWT block of 1 MiB or more sorts on a CUDA device
+    (``engine.bwt_route``) and the host worker's on the host."""
     jobs: queue.Queue = queue.Queue(maxsize=8)
     done = object()
     errors: list = []
@@ -231,29 +229,23 @@ def _device_farm(p: Params, blocks, emit) -> None:
                 return
 
     params = [p] * DEVICE_WORKERS + [p.copy(gpu=False)]
-    try:
-        with ThreadPoolExecutor(max_workers=len(params)) as ex:
-            with trace.span("cli.farm_start"):
-                futs = [ex.submit(worker, q) for q in params]
-            for item in blocks:
-                while not errors:
-                    try:
-                        jobs.put(item, timeout=0.2)
-                        break
-                    except queue.Full:
-                        continue
-                if errors:
+    with ThreadPoolExecutor(max_workers=len(params)) as ex:
+        with trace.span("cli.farm_start"):
+            futs = [ex.submit(worker, q) for q in params]
+        for item in blocks:
+            while not errors:
+                try:
+                    jobs.put(item, timeout=0.2)
                     break
-            jobs.put(done)
-            with trace.span("cli.farm_join"):
-                for fut in futs:
-                    fut.result()
-                ex.shutdown()
-    finally:
-        if bwt_prev is None:
-            os.environ.pop("TBSC_BWT_DEVICE", None)
-        else:
-            os.environ["TBSC_BWT_DEVICE"] = bwt_prev
+                except queue.Full:
+                    continue
+            if errors:
+                break
+        jobs.put(done)
+        with trace.span("cli.farm_join"):
+            for fut in futs:
+                fut.result()
+            ex.shutdown()
     if errors:
         raise errors[0]
 

@@ -17,12 +17,12 @@ so tests monkeypatch it the same way) selects the engine:
 
 - unset or ``native``: the native runtime; the device routes only with
   FEATURE_CUDA (:func:`device_route`), among them the default format's
-  inverse BWT of a block of 1 MiB or more on a CUDA device (K16);
+  BWT and its inverse of a block of 1 MiB or more on a CUDA device
+  (:func:`bwt_route`);
 - ``ops``: every device route on the API's device, whatever FEATURE_CUDA
-  says: the BWT sorts there without ``TBSC_BWT_DEVICE``, the ST sorts
-  there, and the default-format inverse BWT of a block of 1 MiB or more
-  runs there (K16, ``ops/unbwt_rulers.py``); on ``device="cpu"`` these
-  are the plain versions;
+  says: the ST sorts there, and so do the default format's BWT and its
+  inverse (K16, ``ops/unbwt_rulers.py``) of a block of 1 MiB or more; on
+  ``device="cpu"`` these are the plain versions;
 - ``tpu``: ``ops`` when the API's device is CUDA, else every stage on
   the host (the JAX package's ``tpu`` needs a device that is no CPU);
 - ``numpy``: the native runtime is never loaded.  LZP, the QLFC coders
@@ -199,47 +199,42 @@ def _checked(decode, capacity: int | None = None):
     return out
 
 
-def bwt_route(n: int, device, inverse: bool = False) -> str:
-    """Where the default format's BWT (``inverse``: its inverse) of an
-    ``n``-byte block runs: ``numpy`` (``TBSC_ENGINE=numpy``: the torch
-    ops on the API's device), ``device`` (``ops/`` on ``device``) or
-    ``host`` (the native runtime).  A block under 1 MiB, or with no
-    ``device``, stays on the host; ``TBSC_ENGINE=ops|tpu`` sends the rest
-    to ``device``; otherwise the inverse goes to a CUDA ``device`` and the
-    forward only under ``TBSC_BWT_DEVICE=1``.  See :func:`bwt_encode` and
-    :func:`bwt_decode`."""
+def bwt_route(n: int, device) -> str:
+    """Where the default format's BWT and its inverse of an ``n``-byte
+    block run: ``numpy`` (``TBSC_ENGINE=numpy``: the torch ops on the
+    API's device), ``device`` (``ops/`` on ``device``) or ``host`` (the
+    native runtime).  A block under 1 MiB, or with no ``device``, stays on
+    the host; ``TBSC_ENGINE=ops|tpu`` sends the rest to ``device``;
+    otherwise a CUDA ``device`` takes them, and on a CPU device the native
+    runtime, the faster sort and inverse there, keeps them.  ``device``
+    is :func:`device_route`'s: None, outside ``ops``, for a call without
+    FEATURE_CUDA (the -G farm's host worker)."""
     if _force == "numpy":
         return "numpy"
     if device is None or n < _DEVICE_MIN_BLOCK:
         return "host"
-    if _forced(device):
-        return "device"
-    if inverse:
-        return "device" if device.type == "cuda" else "host"
-    return "device" if os.environ.get("TBSC_BWT_DEVICE") == "1" else "host"
+    return "device" if _forced(device) or device.type == "cuda" else "host"
 
 
 def bwt_encode(data: np.ndarray, features: int, device=None, data_d=None):
     """BWT in place.  Returns (index, num_indexes, indexes).
 
-    With ``device`` (the FEATURE_CUDA route), ``TBSC_BWT_DEVICE=1`` (read
-    at each call, the JAX package's opt-in; the CLI's -G farm sets it) and
-    a block of 1 MiB or more, the block sorts there at its own length, with
-    the format's aux rate: by ``ops/bwt.bwt_encode_dc3`` when ``TBSC_BWT``
-    is ``dc3`` (read at each call, as in the JAX package), else by
-    ``ops/bwt.bwt_encode``; ``DEVICE_ROUTES`` counts the call under the
-    function's name.  The JAX package pads the block to a size bucket
-    (unless ``TBSC_BWT_PAD=0``) because XLA compiles a program per shape;
-    torch compiles nothing per shape, so the exact shape is the only form
-    here and ``TBSC_BWT_PAD`` has nothing to switch.  ``data_d``, where
-    given, is the block already on ``device`` (:func:`lzp_screen`'s
-    copy), used in place of a copy of ``data``; spans ``bwt.upload`` (the
-    copy, where there is one) and ``bwt.download`` (U and the aux
-    indexes back, which waits for the sort) time the route's copies.
-    Under ``TBSC_ENGINE=ops|tpu`` the device route needs no
-    ``TBSC_BWT_DEVICE``; under ``numpy`` every block sorts through
-    ``ops/bwt.bwt_encode`` on the API's device, uncounted.  A device failure raises: there is no silent
-    host fallback.  Every other block sorts on the native runtime."""
+    Where :func:`bwt_route` says ``device``, the block sorts there at its
+    own length, with the format's aux rate: by ``ops/bwt.bwt_encode_dc3``
+    when ``TBSC_BWT`` is ``dc3`` (read at each call, as in the JAX
+    package), else by ``ops/bwt.bwt_encode``; ``DEVICE_ROUTES`` counts the
+    call under the function's name.  The JAX package pads the block to a
+    size bucket (unless ``TBSC_BWT_PAD=0``) because XLA compiles a program
+    per shape; torch compiles nothing per shape, so the exact shape is the
+    only form here and ``TBSC_BWT_PAD`` has nothing to switch.
+    ``data_d``, where given, is the block already on ``device``
+    (:func:`lzp_screen`'s copy), used in place of a copy of ``data``;
+    spans ``bwt.upload`` (the copy, where there is one) and
+    ``bwt.download`` (U and the aux indexes back, which waits for the
+    sort) time the route's copies.  Under ``numpy`` every block sorts
+    through ``ops/bwt.bwt_encode`` on the API's device, uncounted.  A
+    device failure raises: there is no silent host fallback.  Every other
+    block sorts on the native runtime."""
     n = len(data)
     where = bwt_route(n, device)
     if where == "numpy":
@@ -276,22 +271,21 @@ def bwt_decode(data: np.ndarray, index: int, num_indexes: int, indexes,
     """Inverse BWT of the default format in place.  Returns 0 or a
     negative error code.
 
-    A block of 1 MiB or more on a CUDA ``device`` (:func:`device_route`:
-    FEATURE_CUDA, or ``TBSC_ENGINE=ops|tpu``), or on ``device="cpu"``
-    under ``ops``, inverts there by K16 (``ops/unbwt_rulers.unbwt``: its
-    kernels on CUDA, their plain versions on the CPU), the primary and,
-    where the block has the format's count of them, the aux indexes as
-    its start rows; spans ``bwt.upload`` and ``bwt.download`` time the
-    block's two copies (the kernels are waited for between them).  A
-    start that can be no BWT's (a primary outside [1, n], an aux index
-    outside [0, n), two starts on one row) returns DATA_CORRUPT before
-    any launch, and so does a block K16 finds to be no BWT of them; the
-    route counts in ``DEVICE_ROUTES``, and a device failure raises.
+    Where :func:`bwt_route` says ``device``, the block inverts there by
+    K16 (``ops/unbwt_rulers.unbwt``: its kernels on CUDA, their plain
+    versions on the CPU), the primary and, where the block has the
+    format's count of them, the aux indexes as its start rows; spans
+    ``bwt.upload`` and ``bwt.download`` time the block's two copies (the
+    kernels are waited for between them).  A start that can be no BWT's
+    (a primary outside [1, n], an aux index outside [0, n), two starts on
+    one row) returns DATA_CORRUPT before any launch, and so does a block
+    K16 finds to be no BWT of them; the route counts in
+    ``DEVICE_ROUTES``, and a device failure raises.
     Under ``numpy`` every block takes the list ranking
     (``fallback/bwt.bwt_decode``) on the API's device.  Other blocks take
     the native runtime."""
     n = len(data)
-    where = bwt_route(n, device, inverse=True)
+    where = bwt_route(n, device)
     if where == "numpy":
         from .fallback import bwt
 

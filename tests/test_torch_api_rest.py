@@ -200,20 +200,21 @@ def mib_block():
 
 
 def test_device_bwt_route_writes_the_host_archive(monkeypatch, mib_block):
-    """FEATURE_CUDA and TBSC_BWT_DEVICE=1 (read at each call) send the
-    default config's BWT to ops/bwt.bwt_encode (device="cpu": its plain
-    version); the archive is the host BWT's and the JAX package's."""
+    """FEATURE_CUDA on a CPU device keeps the default config's BWT on the
+    host, and so do features without it; under ``ops`` the BWT goes to
+    ops/bwt.bwt_encode (device="cpu": its plain version), the route a
+    CUDA device takes.  The archive is the host BWT's and the JAX
+    package's."""
     from libbsc_tpu_torch import engine
 
     P.init(FEATURES | C.FEATURE_CUDA, device="cpu")
     count = engine.DEVICE_ROUTES["bwt_encode"]
-    monkeypatch.delenv("TBSC_BWT_DEVICE", raising=False)
     host = P.compress(mib_block, 0, 0)
     assert engine.DEVICE_ROUTES["bwt_encode"] == count
-    monkeypatch.setenv("TBSC_BWT_DEVICE", "1")
-    dev = P.compress(mib_block, 0, 0)
-    assert engine.DEVICE_ROUTES["bwt_encode"] == count + 1
     assert P.compress(mib_block, 0, 0, features=FEATURES) == host  # no CUDA
+    assert engine.DEVICE_ROUTES["bwt_encode"] == count
+    monkeypatch.setattr(engine, "_force", "ops")
+    dev = P.compress(mib_block, 0, 0)
     assert engine.DEVICE_ROUTES["bwt_encode"] == count + 1
     japi.init(FEATURES)
     assert dev == host == japi.compress(mib_block, 0, 0)
@@ -227,8 +228,10 @@ def test_device_bwt_failure_raises(monkeypatch, mib_block):
     def broken(data):
         raise RuntimeError("device sort failed")
 
+    from libbsc_tpu_torch import engine
+
     monkeypatch.setattr(bwt, "bwt_encode", broken)
-    monkeypatch.setenv("TBSC_BWT_DEVICE", "1")
+    monkeypatch.setattr(engine, "_force", "ops")
     P.init(FEATURES | C.FEATURE_CUDA, device="cpu")
     with pytest.raises(RuntimeError, match="device sort failed"):
         P.compress(mib_block, 0, 0)

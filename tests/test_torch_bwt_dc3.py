@@ -59,11 +59,11 @@ def test_suffix_array_dc3_equals_prefix_quadrupling(kind):
 
 
 def test_engine_takes_the_dc3_route_on_request(monkeypatch):
-    """TBSC_BWT_DEVICE=1 TBSC_BWT=dc3 (any case) sends a 1 MiB block
-    through bwt_encode_dc3, counted under its name; the bytes are the host
-    BWT's."""
+    """TBSC_BWT=dc3 (any case) sends a 1 MiB block on the device route
+    (here ``ops`` on the CPU) through bwt_encode_dc3, counted under its
+    name; the bytes are the host BWT's."""
     data = _data(1 << 20, "text")
-    monkeypatch.setenv("TBSC_BWT_DEVICE", "1")
+    monkeypatch.setattr(engine, "_force", "ops")
     monkeypatch.setenv("TBSC_BWT", "DC3")
     before = dict(engine.DEVICE_ROUTES)
     dev = data.copy()
@@ -77,7 +77,7 @@ def test_engine_takes_the_dc3_route_on_request(monkeypatch):
 
 
 def test_engine_keeps_prefix_quadrupling_otherwise(monkeypatch):
-    monkeypatch.setenv("TBSC_BWT_DEVICE", "1")
+    monkeypatch.setattr(engine, "_force", "ops")
     monkeypatch.setenv("TBSC_BWT", "prefix")
     before = dict(engine.DEVICE_ROUTES)
     engine.bwt_encode(_data(1 << 20, "runs"), 0, torch.device("cpu"))

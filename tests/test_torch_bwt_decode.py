@@ -372,19 +372,38 @@ def test_k16_refuses_starts_no_bwt_has(bad):
 
 
 def test_the_inverse_routes_a_cuda_device_to_the_card(monkeypatch):
-    """bwt_route(n, device, inverse=True): a CUDA device and n >= 1 MiB
-    give device (no launch needed to decide); the CPU, a smaller block
-    or no device keep the host; the forward stays opt-in."""
-    monkeypatch.delenv("TBSC_BWT_DEVICE", raising=False)
+    """bwt_route(n, device), one rule for the BWT and its inverse: a CUDA
+    device and n >= 1 MiB give device (no launch needed to decide); the
+    CPU, a smaller block or no device keep the host; ``ops`` sends a
+    block of 1 MiB or more on any device to it; ``numpy`` takes every
+    block.  bwt_encode and bwt_decode both ask it with the block's
+    length and device."""
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
     big, small = 1 << 20, (1 << 20) - 1
-    assert pengine.bwt_route(big, cuda, inverse=True) == "device"
-    assert pengine.bwt_route(big, cpu, inverse=True) == "host"
-    assert pengine.bwt_route(small, cuda, inverse=True) == "host"
-    assert pengine.bwt_route(big, None, inverse=True) == "host"
-    assert pengine.bwt_route(big, cuda) == "host"
-    monkeypatch.setenv("TBSC_BWT_DEVICE", "1")
     assert pengine.bwt_route(big, cuda) == "device"
+    assert pengine.bwt_route(big, cpu) == "host"
+    assert pengine.bwt_route(small, cuda) == "host"
+    assert pengine.bwt_route(big, None) == "host"
+    with monkeypatch.context() as m:
+        m.setattr(pengine, "_force", "ops")
+        assert pengine.bwt_route(big, cpu) == "device"
+        assert pengine.bwt_route(big, cuda) == "device"
+        assert pengine.bwt_route(small, cpu) == "host"
+        assert pengine.bwt_route(big, None) == "host"
+    with monkeypatch.context() as m:
+        m.setattr(pengine, "_force", "numpy")
+        assert {pengine.bwt_route(n, d) for n in (big, small)
+                for d in (cuda, cpu, None)} == {"numpy"}
+
+    asked = []
+    monkeypatch.setattr(pengine, "bwt_route",
+                        lambda n, device: asked.append((n, device)) or "host")
+    data = _block(5000, "text")
+    block = data.copy()
+    primary, ni, aux = pengine.bwt_encode(block, 0, cuda)
+    assert pengine.bwt_decode(block, primary, ni, aux, 0, cuda) == 0
+    assert asked == [(5000, cuda), (5000, cuda)]
+    np.testing.assert_array_equal(block, data)
 
 
 def test_the_benchmark_readers_of_the_device_inverse(monkeypatch):

@@ -4,10 +4,12 @@ round trips, switches, the farm policy and the -G routes, on the CPU.
 The tests of ``tests/test_cli.py``, run against the port; archives equal
 to the JAX CLI's per container entry for each configuration (``-t``, so
 that neither farm reorders blocks); the -G default config through the
-device BWT route (``device="cpu"``: its plain version) equal to the host
-archive; ``-m9 -e4 -G`` archives decoded by the other package's CLI; and
--G without CUDA refused.  Subprocesses only where a process is the thing
-tested: exit codes, messages, usage, TBSC_DECOMPRESSION_ONLY.
+device BWT route (``ops`` on ``device="cpu"``: its plain version) equal
+to the host archive, from the farm and from -G -t's pool alike, with the
+process environment left as it was; ``-m9 -e4 -G`` archives decoded by
+the other package's CLI; and -G without CUDA refused.  Subprocesses only
+where a process is the thing tested: exit codes, messages, usage,
+TBSC_DECOMPRESSION_ONLY.
 """
 
 import os
@@ -249,9 +251,12 @@ def test_cli_gpu_default_config_identical_bytes(tmp_path, rng, monkeypatch,
     """-G on the default config writes the host archive, entry for entry
     (the reference's CUDA flag accelerates the default config unchanged,
     bwt/bwt.cpp:178-181).  2 MiB blocks, so that LZP output stays over
-    the device route's 1 MiB minimum: the farm's device workers sort them
-    through engine.bwt_encode's device route (device="cpu": its plain
-    version).  TBSC_BWT_DEVICE is restored after the farm."""
+    the device route's 1 MiB minimum: under ``ops`` (the route a CUDA
+    device takes; device="cpu": its plain version) the farm's workers
+    sort them through engine.bwt_encode's device route.  The farm writes
+    nothing into the environment: TBSC_BWT_DEVICE (the JAX package's
+    opt-in, here unset or "0") and every other variable are as the test
+    left them."""
     if prior is None:
         monkeypatch.delenv("TBSC_BWT_DEVICE", raising=False)
     else:
@@ -270,14 +275,53 @@ def test_cli_gpu_default_config_identical_bytes(tmp_path, rng, monkeypatch,
     q.block_size = 2 << 20
     q.gpu = True
     before = engine.DEVICE_ROUTES["bwt_encode"]
-    cli.compress_file(str(inp), str(dev_arch), q, quiet=True, device="cpu")
+    env = dict(os.environ)
+    with monkeypatch.context() as m:
+        m.setattr(engine, "_force", "ops")
+        cli.compress_file(str(inp), str(dev_arch), q, quiet=True,
+                          device="cpu")
     assert engine.DEVICE_ROUTES["bwt_encode"] > before
-    assert os.environ.get("TBSC_BWT_DEVICE") == prior  # restored
+    assert dict(os.environ) == env  # never written
 
     assert blocks_of(dev_arch) == blocks_of(host_arch)
     restored = tmp_path / "r.bin"
     cli.decompress_file(str(dev_arch), str(restored), q, quiet=True,
                         device="cpu")
+    assert restored.read_bytes() == data
+
+
+@pytest.mark.parametrize("switches", ["-G", "-Gt"], ids=["farm", "pool"])
+def test_gpu_bwt_routes_leave_the_environment_alone(tmp_path, monkeypatch,
+                                                    switches):
+    """-G's farm and -G -t's thread pool take the same route for a block
+    of 1 MiB or more: under ``ops`` on device="cpu" (the route a CUDA
+    device takes) each sorts it through engine.bwt_encode's device route,
+    counted in DEVICE_ROUTES.  Neither writes the process environment:
+    it is the same before the call, inside the sort and after."""
+    from tests.test_torch_default_format import zipf_text
+
+    data = zipf_text(1_200_000).tobytes()  # the LZP screen skips it
+    inp, arch = tmp_path / "in.bin", tmp_path / "out.bsc"
+    inp.write_bytes(data)
+    env = dict(os.environ)
+    seen = []
+    sort = engine.bwt_encode
+
+    def spy(*a, **k):
+        seen.append(dict(os.environ))
+        return sort(*a, **k)
+
+    monkeypatch.setattr(engine, "bwt_encode", spy)
+    before = engine.DEVICE_ROUTES["bwt_encode"]
+    with monkeypatch.context() as m:
+        m.setattr(engine, "_force", "ops")
+        cli.compress_file(str(inp), str(arch), params("-b2", switches),
+                          quiet=True, device="cpu")
+    assert engine.DEVICE_ROUTES["bwt_encode"] == before + 1
+    assert seen == [env]
+    assert dict(os.environ) == env
+    restored = tmp_path / "r.bin"
+    cli.decompress_file(str(arch), str(restored), cli.Params(), quiet=True)
     assert restored.read_bytes() == data
 
 

@@ -147,9 +147,10 @@ BLOCKS = {
 
 @pytest.fixture
 def device_bwt(monkeypatch):
-    """The -G farm's device workers' setting: the BWT of a block of 1 MiB
-    or more on the API's device (here the CPU's plain versions)."""
-    monkeypatch.setenv("TBSC_BWT_DEVICE", "1")
+    """The route a -G device worker's block takes on a CUDA device: the
+    BWT and its inverse of a block of 1 MiB or more on the API's device,
+    here under ``ops`` (the CPU's plain versions)."""
+    monkeypatch.setattr(engine, "_force", "ops")
     api.init(FEATURES, device="cpu")
 
 
@@ -235,10 +236,9 @@ def test_bwt_spans_and_uploads(device_bwt, monkeypatch, lzp):
                          "threads")
 
 
-def test_host_bwt_span_tag(monkeypatch):
-    """Without TBSC_BWT_DEVICE (the farm's host worker, or the API alone)
+def test_host_bwt_span_tag():
+    """On a CPU device (as without FEATURE_CUDA: the farm's host worker)
     the BWT runs on the native runtime: tag host, no copy spans."""
-    monkeypatch.delenv("TBSC_BWT_DEVICE", raising=False)
     api.init(FEATURES, device="cpu")
     _profiled(lambda: _compress(zipf_text(1_200_000)))
     rec = trace.spans()
@@ -247,7 +247,10 @@ def test_host_bwt_span_tag(monkeypatch):
     assert not [s for s in rec if s.parent == bwt.id]
 
 
-def test_decode_spans(device_bwt):
+def test_decode_spans():
+    """On a CPU device the inverse runs on the native runtime: tag host,
+    the block's aux indexes, one thread."""
+    api.init(FEATURES, device="cpu")
     data = zipf_text(1_200_000)
     blob = _compress(data)
     out = _profiled(lambda: api.decompress(blob))

@@ -63,7 +63,7 @@ def test_ops_archive_equals_jax_ops_archive(data, jax_ops_archives, config,
     assert back == data
     counted = {k: pengine.DEVICE_ROUTES[k] - before[k]
                for k in pengine.DEVICE_ROUTES}
-    if config == "default":  # the device BWT both ways, no TBSC_BWT_DEVICE
+    if config == "default":  # the device BWT both ways
         assert counted == {"bwt_encode": 1, "bwt_encode_dc3": 0,
                            "bwt_decode": 1}
     else:  # the device ST; the inverse ST is a host chase

@@ -3,8 +3,8 @@ at small size, the fused -m9 -e4 -G route through them (v3 and v2 coder),
 the pipelined many-block entry points, the sharded transform step on a
 one-GPU mesh (K6 in its stage 1), the -m5 -G device ST route, the
 CLI: -m9 -e4 -G through K1, K2 and K3, and the -G default config through
-the device BWT, the sample-sort ST step on a mesh that lists cuda:0
-twice, the DC3 device BWT, the list-ranking inverse BWT (on cuda against
+the device BWT from the farm and from -G -t's pool, the sample-sort ST
+step on a mesh that lists cuda:0 twice, the DC3 device BWT, the list-ranking inverse BWT (on cuda against
 its CPU run at 4 MiB, and through the API under TBSC_ENGINE=ops) and the
 lockstep range coder against the serial reference; the host buffer
 pool's page-locked slots on the fused route; K8 (the wide-aux
@@ -450,14 +450,49 @@ def test_cli_gpu_default_config_entries_equal_host(cuda, tmp_path):
     cli.compress_file(str(inp), str(tmp_path / "host.bsc"), p, quiet=True)
     q = cli.parse_args(["x", "e", "a", "b", "-b2G"])
     before = engine.DEVICE_ROUTES["bwt_encode"]
-    prior = os.environ.get("TBSC_BWT_DEVICE")
+    env = dict(os.environ)
     cli.compress_file(str(inp), str(tmp_path / "dev.bsc"), q, quiet=True)
     assert engine.DEVICE_ROUTES["bwt_encode"] > before
-    assert os.environ.get("TBSC_BWT_DEVICE") == prior
+    assert dict(os.environ) == env  # never written
     assert _entries(tmp_path / "dev.bsc") == _entries(tmp_path / "host.bsc")
     back = tmp_path / "r"
     cli.decompress_file(str(tmp_path / "dev.bsc"), str(back), q, quiet=True)
     assert back.read_bytes() == data
+
+
+def test_cli_gpu_t_sorts_every_block_on_the_card(cuda, tmp_path,
+                                                 monkeypatch):
+    """-b2 -G -t: no farm, a thread pool of workers that each carry
+    FEATURE_CUDA, so every block of 1 MiB or more sorts on the card
+    (DEVICE_ROUTES, K11-K14 launched), with no opt-in; every container
+    entry equals the host's."""
+    from libbsc_tpu_torch import cli, engine
+
+    data = _text(3 * (2 << 20) + 4321, 68)
+    inp = tmp_path / "in"
+    inp.write_bytes(data)
+    sizes = []
+    sort = engine.bwt_encode
+
+    def spy(block, *a, **k):
+        sizes.append(len(block))
+        return sort(block, *a, **k)
+
+    monkeypatch.setattr(engine, "bwt_encode", spy)
+    p = cli.parse_args(["x", "e", "a", "b", "-b2"])
+    cli.compress_file(str(inp), str(tmp_path / "host.bsc"), p, quiet=True)
+    big = sum(n >= 1 << 20 for n in sizes)  # LZP'd blocks of 1 MiB or more
+    assert big > 0
+    q = cli.parse_args(["x", "e", "a", "b", "-b2Gt"])
+    assert not q.parallel
+    before = engine.DEVICE_ROUTES["bwt_encode"]
+    launches = {k: BW.LAUNCHES[k] for k in _SORT}
+    cli.compress_file(str(inp), str(tmp_path / "dev.bsc"), q, quiet=True)
+    torch.cuda.synchronize()
+    assert engine.DEVICE_ROUTES["bwt_encode"] == before + big
+    assert all(BW.LAUNCHES[k] > launches[k] for k in _SORT
+               if k != "bwt_round_keys")
+    assert _entries(tmp_path / "dev.bsc") == _entries(tmp_path / "host.bsc")
 
 
 @pytest.mark.parametrize("k", [5, 8])

@@ -1,7 +1,8 @@
 """K3/K4's two halves as plain versions: the record-writing chain (the
 lane state machine in table form) and the move-to-front / run expansion.
-Their composition against the JAX package's decode kernel in interpret
-mode on a block with high ranks and long runs, and the table against the
+Their composition against the block and the native decode on a block
+with high ranks and long runs (test_torch_wide_decode.py holds the JAX
+package's decode kernel against the port's), and the table against the
 switch form of the state machine (_sm_ctx / _sm_next) at every reachable
 position.  All comparisons are exact: the codec is lossless."""
 
@@ -9,7 +10,6 @@ import numpy as np
 import pytest
 import torch
 
-from libbsc_tpu.ops import wide_kernels as jwk
 from libbsc_tpu_torch.ops import wide as pwide
 from libbsc_tpu_torch.ops import wide_kernels as pwk
 
@@ -46,10 +46,7 @@ def test_halves_compose_to_the_block(block, rans):
     out = pwk.expand_records_plain(rec, nrec, lstart, n)
     assert out.numpy().tobytes() == data
     assert torch.equal(out, pwk.decode_lanes_plain(*args, rans=rans))
-    if rans:  # one JAX interpret decode in this file
-        assert jwk.device_decode(payload, interpret=True) == data
-    else:
-        assert pwide.wide_decode(payload) == data
+    assert pwide.wide_decode(payload) == data
 
 
 def test_records_hold_ranks_and_runs(block):
