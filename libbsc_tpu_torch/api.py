@@ -27,8 +27,10 @@ bytes), and the fused route, or the per-stage route's device BWT, takes
 the device copy.
 
 Host buffers come from the per-thread pool (``utils/bufpool``) at the JAX
-package's slots: ``"compress_lz"`` (LZP's output or the raw block; page-
-locked when the device route is CUDA, as it feeds the fused route's H2D),
+package's slots: ``"compress_lz"`` (LZP's output, the raw block, or the
+device BWT's U where the raw block came in a ring's page-locked buffer,
+which is uploaded from as it is; page-locked when the device route is
+CUDA, as it feeds the fused route's H2D),
 ``"compress_coder"``, and for :func:`decompress` alone ``"decompress_lz"``
 (the entropy-decoded block; page-locked on CUDA, for the fused route's
 D2H and the device inverse BWT's two copies) and ``"decompress_out"``.
@@ -138,13 +140,18 @@ def block_info(block_header: bytes):
     return h.block_size, h.data_size
 
 
-def compress(data: bytes, lzp_hash_size: int = C.DEFAULT_LZPHASHSIZE,
+def compress(data, lzp_hash_size: int = C.DEFAULT_LZPHASHSIZE,
              lzp_min_len: int = C.DEFAULT_LZPMINLEN,
              block_sorter: int = C.DEFAULT_BLOCKSORTER,
              coder: int = C.DEFAULT_CODER,
              features: int | None = None) -> bytes:
-    """bsc_compress: one block (header + payload); a stored block when the
-    data is incompressible."""
+    """bsc_compress: one block (header + payload) of ``data``, ``bytes``
+    or a contiguous uint8 array; a stored block when the data is
+    incompressible.  ``data`` is only read.  A page-locked buffer that a
+    ring has lent out (``bufpool.lent``: the CLI's reads under -G) goes
+    to a device route as it is; other input is first copied into the
+    ``"compress_lz"`` slot (an ``api.copy`` span), and so is a lent
+    buffer before a stage that works in place."""
     with span("api.compress", len(data)):
         return _compress(data, lzp_hash_size, lzp_min_len, block_sorter,
                          coder, features)
@@ -167,6 +174,18 @@ def _compress(data: bytes, lzp_hash_size: int, lzp_min_len: int,
     with span("adler32", n):
         adler_data = adler32(data)
     buf = np.frombuffer(data, dtype=np.uint8)
+    lent = device is not None and bufpool.lent(buf)
+
+    def owned(block):
+        """``block``, or where it is the caller's, a copy of it in the
+        slot (for the card's copy, or for a stage that writes in
+        place)."""
+        if block is not buf:
+            return block
+        out = bufpool.get("compress_lz", n, pinned)
+        with span("api.copy", n):
+            np.copyto(out, buf)
+        return out
 
     lz = block_d = None
     if mode != (mode & 0xFF) and not _lzp_probe_pays(
@@ -176,9 +195,7 @@ def _compress(data: bytes, lzp_hash_size: int, lzp_min_len: int,
             and n >= engine._DEVICE_MIN_BLOCK):
         # the raw block goes to the device once: screened there, and kept
         # for the fused route or the device BWT when no LZP match can occur
-        lz = bufpool.get("compress_lz", n, pinned)
-        with span("api.copy", n):
-            np.copyto(lz, buf)
+        lz = buf if lent else owned(buf)
         with span("lzp_screen", n) as sp:
             block_d, flags = engine.lzp_screen(lz, lzp_min_len, device)
             sp.out, sp.tag = sum(flags), str(len(flags))
@@ -195,9 +212,7 @@ def _compress(data: bytes, lzp_hash_size: int, lzp_min_len: int,
         if lz is None:
             mode &= 0xFF
     if lz is None:
-        lz = bufpool.get("compress_lz", n, pinned)
-        with span("api.copy", n):
-            np.copyto(lz, buf)
+        lz = buf if lent else owned(buf)
     if len(lz) <= C.HEADER_SIZE:
         block_sorter = C.BLOCKSORTER_BWT
         mode = (mode & ~0x1F) | C.BLOCKSORTER_BWT
@@ -215,15 +230,25 @@ def _compress(data: bytes, lzp_hash_size: int, lzp_min_len: int,
 
     if payload is None:  # per-stage route: the sorter, then the coder
         if block_sorter == C.BLOCKSORTER_BWT:
+            route = engine.bwt_route(len(lz), device)
+            u = None
+            if lz is buf and route == "device":
+                u = bufpool.get("compress_lz", n, pinned)  # U lands here
+            else:
+                lz = owned(lz)
             with _stage("bwt_encode", len(lz)) as sp:
-                sp.tag = engine.bwt_route(len(lz), device)
+                sp.tag = route
                 index, num_indexes, indexes = engine.bwt_encode(
-                    lz, features, device, block_d)
+                    lz, features, device, block_d, out=u)
+            if u is not None:
+                lz = u
         elif block_sorter == C.BLOCKSORTER_BWT_WIDEAUX:
+            lz = owned(lz)
             with _stage("bwt_encode_wideaux", len(lz)):
                 index, num_indexes, indexes, wideaux_r = \
                     engine.bwt_encode_wideaux(lz)
         elif C.BLOCKSORTER_ST3 <= block_sorter <= C.BLOCKSORTER_ST8:
+            lz = owned(lz)
             with _stage(f"st{block_sorter}_encode", len(lz)):
                 index = engine.st_encode(lz, block_sorter, features, device)
             num_indexes, indexes = 0, None

@@ -18,6 +18,12 @@ contexts (f/p/a), -t/-T disable multithreading, -G the CUDA device.
 -G asks for the CUDA device and fails without one; without -G no stage
 touches the device.  The filters (segmentation, record reordering, context
 order) are host code, as in the reference.
+
+Under -G without -s each block is read straight into a buffer of the
+process's read ring (``bufpool.Ring``; page-locked on a CUDA device), and
+with no filter that changes it the API uploads it to the card from there:
+the read is the block's one host copy.  The ring holds a block until its
+entry is written, and the reader waits for a free buffer.
 """
 
 from __future__ import annotations
@@ -35,12 +41,15 @@ import numpy as np
 
 from . import api, constants as C
 from .filters import detectors, preprocessing
-from .utils import trace
+from .utils import bufpool, trace
 
 FILE_SIGN = b"bsc1"
 BLOCK_HEADER_FMT = "<qbb"  # blockOffset, recordSize, sortingContexts
 BLOCK_HEADER_SIZE = 10
 DEVICE_WORKERS = 3  # -G farm: device workers beside one host worker
+# read buffers: a block for each of the farm's workers and one read ahead
+READ_RING = DEVICE_WORKERS + 2
+_rings: dict = {}  # page-locked or not -> the process's read ring
 
 
 class Params:
@@ -103,8 +112,10 @@ def _init(p: Params, device) -> None:
     api.init(p.features(), device if p.gpu else "cpu")
 
 
-def _compress_one(p: Params, data: bytes):
-    """Filters + compress one block; returns (record_size, contexts, blob)."""
+def _compress_one(p: Params, data):
+    """Filters + compress one block (``bytes`` or a uint8 array, which is
+    only read); returns (record_size, contexts, blob).  With no filter
+    that changes the block, the API gets ``data``'s own memory."""
     record_size = 1
     with trace.span("cli.prepare", len(data)):
         buf = np.frombuffer(data, dtype=np.uint8)
@@ -118,13 +129,12 @@ def _compress_one(p: Params, data: bytes):
         if contexts == C.CONTEXTS_AUTODETECT:
             contexts = detectors.detect_contextsorder(buf)
         if contexts == C.CONTEXTS_PRECEDING:
-            buf = buf[::-1]
-        block = buf.tobytes()
+            buf = buf[::-1].copy()
 
     hs = p.lzp_hash_size if p.lzp else 0
     ml = p.lzp_min_len if p.lzp else 0
     try:
-        blob = api.compress(block, hs, ml, p.block_sorter, p.coder,
+        blob = api.compress(buf, hs, ml, p.block_sorter, p.coder,
                             p.features())
     except api.BscError as e:
         if e.code != C.NOT_COMPRESSIBLE:
@@ -145,13 +155,32 @@ def _open_pair(inp: str, outp: str):
         yield f, out
 
 
-def _read_blocks(f, block_size: int, segmentation: bool):
-    """(offset, bytes) of each block of f.  With segmentation (bsc.cpp:
-    234-277): detect_segments on a full block, emit cached segments one by
-    one; the last cached segment is topped up with fresh data and
-    segmented again (a boundary can move once more data is visible).
-    Every byte read is yielded."""
+def _read_ring(pinned: bool) -> bufpool.Ring:
+    """The process's read ring, page-locked or not, made at first use."""
+    ring = _rings.get(pinned)
+    if ring is None:
+        ring = _rings.setdefault(pinned, bufpool.Ring(READ_RING, pinned))
+    return ring
+
+
+def _read_blocks(f, block_size: int, segmentation: bool, ring=None):
+    """(offset, data) of each block of f: ``bytes``, or with ``ring`` (no
+    segmentation) a uint8 view of a buffer taken from it, which the
+    consumer gives back; the ``cli.read`` span is then tagged ``pinned``
+    or ``pageable``.  With segmentation (bsc.cpp:234-277): detect_segments
+    on a full block, emit cached segments one by one; the last cached
+    segment is topped up with fresh data and segmented again (a boundary
+    can move once more data is visible).  Every byte read is yielded."""
     offset = 0
+    if ring is not None:
+        tag = "pinned" if ring.pinned else "pageable"
+        while f.peek(1):  # at the end no buffer is taken
+            buf = ring.take(block_size)
+            with trace.span("cli.read", offset=offset, tag=tag) as sp:
+                got = sp.nbytes = f.readinto(buf)
+            yield offset, buf[:got]
+            offset += got
+        return
     if not segmentation:
         while True:
             with trace.span("cli.read", offset=offset) as sp:
@@ -189,14 +218,17 @@ def _read_blocks(f, block_size: int, segmentation: bool):
         pending = pending[size:]
 
 
-def _device_farm(p: Params, blocks, emit) -> None:
+def _device_farm(p: Params, blocks, emit, release) -> None:
     """The -G farm: DEVICE_WORKERS device workers and one host worker
     (features without FEATURE_CUDA) pull blocks from one bounded queue, so
     the host coder runs while the device sorts.  -G runs the default
     config unchanged, the reference's CUDA semantics (bwt/bwt.cpp:
     178-181): each worker's features decide its routes, so a device
     worker's BWT block of 1 MiB or more sorts on a CUDA device
-    (``engine.bwt_route``) and the host worker's on the host."""
+    (``engine.bwt_route``) and the host worker's on the host.
+    ``release(data)`` is called once for every block taken from
+    ``blocks``: after its entry's ``emit`` has returned, or when it is
+    dropped after an error."""
     jobs: queue.Queue = queue.Queue(maxsize=8)
     done = object()
     errors: list = []
@@ -219,33 +251,46 @@ def _device_farm(p: Params, blocks, emit) -> None:
                 errors.append(e)
                 # drain, so that a producer blocked on the queue wakes up
                 # even when every worker died
-                try:
-                    while True:
-                        if jobs.get_nowait() is done:
-                            jobs.put(done)
-                            break
-                except queue.Empty:
-                    pass
+                drain()
                 return
+            finally:
+                release(data)
+
+    def drain():
+        try:
+            while True:
+                item = jobs.get_nowait()
+                if item is done:
+                    jobs.put(done)
+                    return
+                release(item[1])
+        except queue.Empty:
+            pass
 
     params = [p] * DEVICE_WORKERS + [p.copy(gpu=False)]
     with ThreadPoolExecutor(max_workers=len(params)) as ex:
         with trace.span("cli.farm_start"):
             futs = [ex.submit(worker, q) for q in params]
-        for item in blocks:
-            while not errors:
-                try:
-                    jobs.put(item, timeout=0.2)
+        try:
+            for item in blocks:
+                while not errors:
+                    try:
+                        jobs.put(item, timeout=0.2)
+                        break
+                    except queue.Full:
+                        continue
+                else:  # a worker failed before this block was queued
+                    release(item[1])
                     break
-                except queue.Full:
-                    continue
-            if errors:
-                break
-        jobs.put(done)
+                if errors:
+                    break
+        finally:  # the workers stop, even where the reader raised
+            jobs.put(done)
         with trace.span("cli.farm_join"):
             for fut in futs:
                 fut.result()
             ex.shutdown()
+    drain()  # blocks queued after every worker had stopped
     if errors:
         raise errors[0]
 
@@ -299,9 +344,19 @@ def _compress_file(inp: str, outp: str, p: Params, quiet: bool,
             with trace.span("pool.block", len(data), offset, parent=call):
                 return (offset, *_compress_one(p, data))
 
-        blocks = _read_blocks(f, block_size, p.segmentation)
+        ring = None
+        if p.gpu and not p.segmentation:
+            ring = _read_ring(api._state["device"].type == "cuda")
+        blocks = _read_blocks(f, block_size, p.segmentation, ring)
         if p.gpu and p.parallel:
-            _device_farm(p, blocks, emit)
+            _device_farm(p, blocks, emit,
+                         ring.give if ring else lambda data: None)
+        elif ring is not None:  # -G -t: a buffer is back before the next read
+            for item in blocks:
+                try:
+                    emit(*job(item))
+                finally:
+                    ring.give(item[1])
         else:
             with ThreadPoolExecutor(max_workers=farm_workers) as ex:
                 for result in ex.map(job, blocks):

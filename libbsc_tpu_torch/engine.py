@@ -216,7 +216,8 @@ def bwt_route(n: int, device) -> str:
     return "device" if _forced(device) or device.type == "cuda" else "host"
 
 
-def bwt_encode(data: np.ndarray, features: int, device=None, data_d=None):
+def bwt_encode(data: np.ndarray, features: int, device=None, data_d=None,
+               out: np.ndarray | None = None):
     """BWT in place.  Returns (index, num_indexes, indexes).
 
     Where :func:`bwt_route` says ``device``, the block sorts there at its
@@ -229,10 +230,13 @@ def bwt_encode(data: np.ndarray, features: int, device=None, data_d=None):
     only form here and ``TBSC_BWT_PAD`` has nothing to switch.
     ``data_d``, where given, is the block already on ``device``
     (:func:`lzp_screen`'s copy), used in place of a copy of ``data``;
-    spans ``bwt.upload`` (the copy, where there is one) and
-    ``bwt.download`` (U and the aux indexes back, which waits for the
-    sort) time the route's copies.  Under ``numpy`` every block sorts
-    through ``ops/bwt.bwt_encode`` on the API's device, uncounted.  A
+    ``out``, where given (``len(data)`` bytes), receives this route's U
+    in place of ``data``, which it then only reads (the other routes sort
+    ``data`` in place and take no ``out``); spans ``bwt.upload`` (the
+    copy, where there is one) and ``bwt.download`` (U and the aux indexes
+    back, which waits for the sort) time the route's copies.  Under
+    ``numpy`` every block sorts through ``ops/bwt.bwt_encode`` on the
+    API's device, uncounted.  A
     device failure raises: there is no silent host fallback.  Every other
     block sorts on the native runtime."""
     n = len(data)
@@ -253,7 +257,7 @@ def bwt_encode(data: np.ndarray, features: int, device=None, data_d=None):
         U, primary, aux = getattr(opsbwt, route)(data_d)
         with span("bwt.download", n):
             aux = aux.cpu().numpy()
-            torch.from_numpy(data).copy_(U)
+            torch.from_numpy(data if out is None else out).copy_(U)
         DEVICE_ROUTES[route] += 1
         return int(primary), int(aux.shape[0]), aux
     lib = native.load()

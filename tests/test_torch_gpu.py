@@ -14,7 +14,8 @@ edges, their launches on the fused route, and the v1 schedule
 (TBSC_WIDE_DEV_SCHED) through them against the native walker; K11-K14
 (the forward BWT's sort) on the hard blocks and at their tile edges, and
 every forward BWT route through them with no plain version, cummax or
-shifted copy.
+shifted copy; and -G encodes that read each block once, into the
+page-locked read ring the API uploads from with no copy of its own.
 
 These tests need a CUDA device and skip without one.  tests/conftest.py
 imports JAX, which a GPU machine need not have, so run them there with
@@ -1041,3 +1042,72 @@ def test_k16_route_spans_and_tag(cuda):
     assert unbwt.tag == f"device, {blob[-1]} aux, 0 threads"
     assert sorted(s.name for s in rec if s.parent == unbwt.id) == [
         "bwt.download", "bwt.upload"]
+
+
+@pytest.mark.parametrize("switches", ["-G", "-m9e4G"], ids=["default",
+                                                            "m9e4"])
+def test_cli_gpu_reads_each_block_once(cuda, tmp_path, monkeypatch,
+                                       switches):
+    """A 4 MiB text file through -G's farm, under the profiler: the block
+    is read into the page-locked read ring (every cli.read tagged
+    "pinned") and handed to the API as it is, which uploads it from there
+    (no api.copy span under any api.compress) and leaves it unchanged;
+    the default format's device BWT downloads U into a page-locked slot
+    of its own.  The entry is the block api.compress writes for the
+    block's bytes and, for the default format, portbench/ref's
+    block_default's."""
+    from libbsc_tpu_torch import api, cli, engine
+    from libbsc_tpu_torch.utils import trace
+
+    monkeypatch.setenv("TBSC_WIDE_LANES", "1024")
+    data = _text(4 << 20, 2301)
+    inp, arch = tmp_path / "in", tmp_path / "a.bsc"
+    inp.write_bytes(data)
+    p = cli.parse_args(["x", "e", "a", "b", switches])
+    handed, outs = [], []
+    compress, sort = api.compress, engine.bwt_encode
+
+    def watched(block, *a, **k):
+        handed.append((bufpool.lent(block), bytes(block)))
+        blob = compress(block, *a, **k)
+        assert bytes(block) == data
+        return blob
+
+    def spy(block, *a, out=None, **k):
+        outs.append((out, np.shares_memory(block, out) if out is not None
+                     else None))
+        return sort(block, *a, out=out, **k)
+
+    monkeypatch.setattr(api, "compress", watched)
+    monkeypatch.setattr(engine, "bwt_encode", spy)
+    prof = torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CPU])
+    prof.start()
+    try:
+        cli.compress_file(str(inp), str(arch), p, quiet=True)
+    finally:
+        prof.stop()
+    rec = trace.spans()
+    assert handed == [(True, data)]
+    reads = [s for s in rec if s.name == "cli.read"]
+    assert reads and {s.tag for s in reads} == {"pinned"}
+    calls = {s.id for s in rec if s.name == "api.compress"}
+    assert len(calls) == 1
+    assert not [s for s in rec if s.name == "api.copy" and s.parent in calls]
+    if switches == "-G":
+        ((out, shared),) = outs
+        assert torch.from_numpy(out).is_pinned() and shared is False
+    else:
+        assert outs == []
+
+    ((_, _, blob),) = _entries(arch).values()
+    monkeypatch.setattr(api, "compress", compress)
+    P.init(p.features(), device=cuda)
+    assert blob == P.compress(data, p.lzp_hash_size, p.lzp_min_len,
+                              p.block_sorter, p.coder, p.features())
+    if switches == "-G":
+        from portbench.ref import block_default
+
+        cfg = {"lzp": [p.lzp_hash_size, p.lzp_min_len]}
+        assert blob == block_default.encode(np.frombuffer(data, np.uint8),
+                                            cfg, cuda)
