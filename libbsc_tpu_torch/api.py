@@ -249,7 +249,8 @@ def _compress(data: bytes, lzp_hash_size: int, lzp_min_len: int,
                     engine.bwt_encode_wideaux(lz)
         elif C.BLOCKSORTER_ST3 <= block_sorter <= C.BLOCKSORTER_ST8:
             lz = owned(lz)
-            with _stage(f"st{block_sorter}_encode", len(lz)):
+            with _stage(f"st{block_sorter}_encode", len(lz)) as sp:
+                sp.tag = engine.st_route(len(lz), device)
                 index = engine.st_encode(lz, block_sorter, features, device)
             num_indexes, indexes = 0, None
         else:
@@ -467,7 +468,8 @@ def _run_sorter(st) -> None:
                 lz, h.index, st["num_indexes"], st["indexes"], r,
                 st["device"])
     else:
-        with _stage(f"st{st['sorter']}_decode", len(lz)):
+        with _stage(f"st{st['sorter']}_decode", len(lz)) as sp:
+            sp.tag = f"host, {engine.ST_DECODE_THREADS} threads"
             rc = engine.st_decode(lz, st["sorter"], h.index,
                                   _state["features"])
     if rc < 0:

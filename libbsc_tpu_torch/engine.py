@@ -51,7 +51,8 @@ from .utils.trace import span
 _DEVICE_MIN_BLOCK = 1 << 20
 
 # Calls that took a device route with no kernel of its own to count them.
-DEVICE_ROUTES = {"bwt_encode": 0, "bwt_encode_dc3": 0, "bwt_decode": 0}
+DEVICE_ROUTES = {"bwt_encode": 0, "bwt_encode_dc3": 0, "bwt_decode": 0,
+                 "st_encode": 0}
 
 _force = os.environ.get("TBSC_ENGINE", "").lower() or None
 _device = None  # the API's device (init), where the numpy engine's ops run
@@ -330,28 +331,47 @@ def _unbwt_device(data: np.ndarray, index: int, num_indexes: int, indexes,
     return 0
 
 
+def st_route(n: int, device) -> str:
+    """Where the forward ST of an ``n``-byte block runs: ``numpy``
+    (``TBSC_ENGINE=numpy``: the torch ops on the API's device), ``device``
+    (``ops/st`` on ``device``, a block of 1 MiB or more) or ``host`` (the
+    native runtime).  ``device`` is :func:`device_route`'s: None for a
+    call without FEATURE_CUDA (the -G farm's host worker)."""
+    if _force == "numpy":
+        return "numpy"
+    if device is not None and n >= _DEVICE_MIN_BLOCK:
+        return "device"
+    return "host"
+
+
 def st_encode(data: np.ndarray, k: int, features: int, device=None) -> int:
     """Forward ST-k in place.  Returns the index or a negative error code.
 
-    With ``device`` (the FEATURE_CUDA route) a block of 1 MiB or more is
-    sorted there by ``ops/st.st_encode`` at its own length; others take
-    the native runtime.  The JAX package pads the block to a size bucket
-    and serialises the first call of each (bucket, k), because XLA
-    compiles a program per shape; torch compiles nothing per shape, so
-    there is neither here.  Under ``TBSC_ENGINE=numpy`` every block sorts
-    there on the API's device.  A device failure raises: there is no
-    silent host fallback."""
+    Where :func:`st_route` says ``device``, the block is sorted there by
+    ``ops/st.st_encode`` at its own length; spans ``st.upload`` and
+    ``st.download`` (the output back, which waits for the sort) time the
+    route's copies, and ``DEVICE_ROUTES`` counts the call.  The JAX
+    package pads the block to a size bucket and serialises the first
+    call of each (bucket, k), because XLA compiles a program per shape;
+    torch compiles nothing per shape, so there is neither here.  Under
+    ``TBSC_ENGINE=numpy`` every block sorts there on the API's device.  A
+    device failure raises: there is no silent host fallback.  Other
+    blocks take the native runtime."""
     n = len(data)
-    if _force == "numpy":
+    where = st_route(n, device)
+    if where == "numpy":
         from .fallback import st
 
         return st.st_encode(data, k, _numpy_device())
-    if device is not None and n >= _DEVICE_MIN_BLOCK:
+    if where == "device":
         from .ops import st as opsst
 
-        out, index = opsst.st_encode(
-            torch.from_numpy(_as_c(data)).to(device), k)
-        data[:] = out.cpu().numpy()
+        with span("st.upload", n):
+            data_d = torch.from_numpy(_as_c(data)).to(device)
+        out, index = opsst.st_encode(data_d, k)
+        with span("st.download", n):
+            data[:] = out.cpu().numpy()
+        DEVICE_ROUTES["st_encode"] += 1
         return int(index)
     lib = native.load()
     buf = _as_c(data)
@@ -359,6 +379,11 @@ def st_encode(data: np.ndarray, k: int, features: int, device=None) -> int:
     if rc >= 0 and buf is not data:
         data[:] = buf
     return rc
+
+
+# Threads the native inverse ST walks on, whatever count it is given
+# (native/st.cc st_decode), as the numpy engine's chase does.
+ST_DECODE_THREADS = 1
 
 
 def st_decode(data: np.ndarray, k: int, index: int, features: int) -> int:

@@ -543,9 +543,15 @@ static inline bool unst_step(UnstWalk& w) {
 static int unst_prepare(UnstWalk& w, u8* T, int n, int k, int index) {
   w.T = T;
   w.n = n;
-  w.P = (u32*)halloc((size_t)n * sizeof(u32));
+  // a fresh table each call, not halloc's cached one (see hfresh)
+  w.P = (u32*)hfresh((size_t)n * sizeof(u32));
   u8* M = (u8*)halloc((size_t)n);
-  if (!w.P || !M) { hfree(M); return -2; }
+  if (!w.P || !M) {
+    hfree(M);
+    hfresh_free(w.P, (size_t)n * sizeof(u32));
+    w.P = nullptr;
+    return -2;
+  }
   std::memset(M, 0, (size_t)n);
   bool fail_back = unst_mark_groups(T, M, w.count, n, k);
   if (n < 0x800000) {
@@ -616,7 +622,7 @@ int st_decode_batch(u8** Ts, const i32* ns, int k, const i32* indexes,
           ++b;
         } else {
           // finished: swap the last live walk into this slot
-          hfree(ws[b].P);
+          hfresh_free(ws[b].P, (size_t)ws[b].n * sizeof(u32));
           hfree(ws[b].cnt);
           ws[b].P = nullptr;
           ws[b].cnt = nullptr;
@@ -627,7 +633,10 @@ int st_decode_batch(u8** Ts, const i32* ns, int k, const i32* indexes,
       }
     }
   }
-  for (int b = 0; b < nblocks; ++b) { hfree(ws[b].P); hfree(ws[b].cnt); }
+  for (int b = 0; b < nblocks; ++b) {
+    hfresh_free(ws[b].P, (size_t)ws[b].n * sizeof(u32));
+    hfree(ws[b].cnt);
+  }
   delete[] ws;
   return rc;
 }

@@ -65,10 +65,10 @@ def test_ops_archive_equals_jax_ops_archive(data, jax_ops_archives, config,
                for k in pengine.DEVICE_ROUTES}
     if config == "default":  # the device BWT both ways
         assert counted == {"bwt_encode": 1, "bwt_encode_dc3": 0,
-                           "bwt_decode": 1}
+                           "bwt_decode": 1, "st_encode": 0}
     else:  # the device ST; the inverse ST is a host chase
         assert counted == {"bwt_encode": 0, "bwt_encode_dc3": 0,
-                           "bwt_decode": 0}
+                           "bwt_decode": 0, "st_encode": 1}
 
 
 def test_ops_wide_archive_equals_the_feature_cuda_archive(data, monkeypatch):

@@ -14,8 +14,10 @@ edges, their launches on the fused route, and the v1 schedule
 (TBSC_WIDE_DEV_SCHED) through them against the native walker; K11-K14
 (the forward BWT's sort) on the hard blocks and at their tile edges, and
 every forward BWT route through them with no plain version, cummax or
-shifted copy; and -G encodes that read each block once, into the
-page-locked read ring the API uploads from with no copy of its own.
+shifted copy; -G encodes that read each block once, into the
+page-locked read ring the API uploads from with no copy of its own; and
+-b25 -m5 -G through the farm, its 25 MiB block sorted on the card, each
+entry the benchmark reference's block.
 
 These tests need a CUDA device and skip without one.  tests/conftest.py
 imports JAX, which a GPU machine need not have, so run them there with
@@ -1111,3 +1113,57 @@ def test_cli_gpu_reads_each_block_once(cuda, tmp_path, monkeypatch,
         cfg = {"lzp": [p.lzp_hash_size, p.lzp_min_len]}
         assert blob == block_default.encode(np.frombuffer(data, np.uint8),
                                             cfg, cuda)
+
+
+def test_cli_gpu_m5_farm_sorts_on_the_card(cuda, tmp_path):
+    """-b25 -m5 -G (the benchmark's bsc-m5-G-b25) on a 25 MiB block and a
+    600,000-byte tail, through the farm under the profiler: the block
+    sorts on the card (DEVICE_ROUTES counts it, its st5_encode span is
+    tagged "device" and holds one st.upload and one st.download), the
+    tail, under 1 MiB, on the host; each entry is the block
+    portbench/ref's block_st writes, and decompress_file -G restores the
+    file (the inverse ST tagged "host, 1 threads")."""
+    import json
+    from pathlib import Path
+
+    from libbsc_tpu_torch import cli, engine
+    from libbsc_tpu_torch.utils import trace
+    from portbench.ref import block_st
+
+    big = 25 << 20
+    words = [b"the ", b"quick ", b"brown ", b"fox ", b"jumps ", b"over ",
+             b"a lazy dog. ", b"compression ", b"transform ", b"lanes "]
+    picks = np.random.default_rng(2401).integers(0, len(words), big // 3)
+    data = b"".join(words[i] for i in picks)[:big + 600_000]
+    inp, arch, back = tmp_path / "in", tmp_path / "a.bsc", tmp_path / "r"
+    inp.write_bytes(data)
+    p = cli.parse_args(["x", "e", "a", "b", "-b25", "-m5", "-G"])
+    before = engine.DEVICE_ROUTES["st_encode"]
+    prof = torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CPU])
+    prof.start()
+    try:
+        cli.compress_file(str(inp), str(arch), p, quiet=True)
+        cli.decompress_file(str(arch), str(back),
+                            cli.parse_args(["x", "d", "a", "b", "-G"]),
+                            quiet=True)
+    finally:
+        prof.stop()
+    assert back.read_bytes() == data
+    assert engine.DEVICE_ROUTES["st_encode"] == before + 1
+    rec = trace.spans()
+    tags = sorted((s.nbytes, s.tag) for s in rec if s.name == "st5_encode")
+    assert tags == [(600_000, "host"), (big, "device")]
+    [st] = [s for s in rec if s.name == "st5_encode" and s.tag == "device"]
+    assert sorted(s.name for s in rec if s.parent == st.id) == [
+        "st.download", "st.upload"]
+    assert {s.tag for s in rec if s.name == "st5_decode"} == {
+        "host, 1 threads"}
+    cfg = json.loads((Path(__file__).resolve().parent.parent / "portbench"
+                      / "configs" / "bsc-m5-G-b25.json").read_text())
+    raw = np.frombuffer(data, np.uint8)
+    entries = _entries(arch)
+    assert sorted(entries) == [0, big]
+    for off, (rs, ctx, blob) in entries.items():
+        assert (rs, ctx) == (1, 1)
+        assert blob == block_st.encode(raw[off:off + big], cfg, cuda)

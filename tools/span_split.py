@@ -23,7 +23,8 @@ run's device trace:
   (``host_stage_ms``), the device stage's wall and the kernels, copies
   and sets that ran inside it (busy), and each span name's total over
   the phase's calls, a call, and the card's busy time inside the
-  spans of ``BUSY_IN`` (the default format's stages and the screen);
+  spans of ``BUSY_IN`` (the default and ST formats' stages and the
+  screen);
 - ``workers``: the blocks each farm route (``farm.block`` tag) took.
 
 The JSON goes to ``--out``.
@@ -44,7 +45,9 @@ WAITS = {"farm.wait", "cli.farm_join", "cli.pool_join"}
 # stages whose device busy time the split reports (the card's kernels,
 # copies and sets inside their spans)
 BUSY_IN = {"lzp_screen", "bwt_encode", "bwt.upload", "bwt.download",
-           "coder_compress", "coder_decompress", "bwt_decode"}
+           "coder_compress", "coder_decompress", "bwt_decode",
+           "st.upload", "st.download",
+           *(f"st{k}_{d}" for k in range(3, 9) for d in ("encode", "decode"))}
 
 
 def main(argv=None) -> int:
